@@ -14,13 +14,16 @@ import torch
 
 from . import grid as grid_mod
 from . import state as state_mod
+from .ecology import individuals, phyto, population
 
 _PORT_CLASSES = {cls.__name__: cls for cls in (
     state_mod.AtmosState, state_mod.OceanState, state_mod.LandState, state_mod.EnergyState,
     state_mod.ClockState, state_mod.AlbedoCaches, state_mod.WorldState,
-    state_mod.StaticFields, grid_mod.Grid)}
-# subsystem groups of the JAX WorldState that the port does not carry yet
-_UNPORTED = ("eco", "indiv", "phyto", "routing")
+    state_mod.StaticFields, grid_mod.Grid,
+    population.EcoState, individuals.IndivState, phyto.PhytoState)}
+# host numbers of the port's clock
+_HOST_INT = ("step_idx",)
+_HOST_FLOAT = ("accum_t_day", "phyto_accum")
 
 
 def _leaf(x, device, dtype):
@@ -36,28 +39,31 @@ def _leaf(x, device, dtype):
     return torch.as_tensor(a.astype(np.float64)).to(device=device, dtype=dtype)
 
 
-def world_from_numpy(jax_obj, device="cpu", dtype=torch.float64):
+def world_from_numpy(jax_obj, device="cuda", dtype=torch.float64):
     """Convert a JAX ``WorldState``, ``StaticFields`` or ``Grid`` (or any of
-    the state groups) into the port's class of the same name. A port object
+    the state groups, the ecology, individual-pool and phytoplankton states
+    included) into the port's class of the same name. A port object
     converts too, which moves it to another device or dtype.
 
-    ``ClockState.step_idx`` becomes a Python int and the JAX ``rng`` key is
-    dropped; a JAX world whose ecology, phytoplankton or routing group is
-    set cannot be carried over and raises ``ValueError``."""
+    The clock's step counter becomes a Python int and its two day
+    accumulators Python floats; the JAX ``rng`` key is dropped (the port's
+    random stream is ``Model.generator``); a JAX world whose routing group
+    is set cannot be carried over and raises ``ValueError``."""
+    device = grid_mod.resolve_device(device)
     cls = _PORT_CLASSES.get(type(jax_obj).__name__)
     if cls is None:
         raise TypeError(f"no port counterpart for {type(jax_obj).__name__}")
-    if cls is state_mod.WorldState:
-        present = [g for g in _UNPORTED if getattr(jax_obj, g, None) is not None]
-        if present:
-            raise ValueError(f"the port does not carry the {present} state groups yet")
+    if cls is state_mod.WorldState and getattr(jax_obj, "routing", None) is not None:
+        raise ValueError("the port does not carry the routing state group yet")
     kw = {}
     for f in dataclasses.fields(cls):
         x = getattr(jax_obj, f.name)
-        if type(x).__name__ in _PORT_CLASSES:
-            kw[f.name] = world_from_numpy(x, device, dtype)
-        elif f.name == "step_idx":
+        if x is None or type(x).__name__ in _PORT_CLASSES:
+            kw[f.name] = None if x is None else world_from_numpy(x, device, dtype)
+        elif f.name in _HOST_INT:
             kw[f.name] = int(np.asarray(x))
+        elif f.name in _HOST_FLOAT:
+            kw[f.name] = float(np.asarray(x))
         else:
             kw[f.name] = _leaf(x, device, dtype)
     return cls(**kw)
@@ -65,13 +71,16 @@ def world_from_numpy(jax_obj, device="cpu", dtype=torch.float64):
 
 def world_to_numpy(world) -> dict:
     """Flatten a port ``WorldState`` (or a JAX one, read by the port's field
-    names) into {"group.field": ndarray or int}."""
+    names) into {"group.field": ndarray or number}; absent groups are
+    skipped."""
     out = {}
     for g in dataclasses.fields(state_mod.WorldState):
         group = getattr(world, g.name)
+        if group is None:
+            continue
         for f in dataclasses.fields(_PORT_CLASSES[type(group).__name__]):
             x = getattr(group, f.name)
-            if f.name == "step_idx":
+            if f.name in _HOST_INT:
                 out[f"{g.name}.{f.name}"] = int(np.asarray(x))
             elif isinstance(x, torch.Tensor):
                 out[f"{g.name}.{f.name}"] = x.detach().cpu().numpy()

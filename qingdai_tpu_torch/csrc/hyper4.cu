@@ -3,11 +3,8 @@
 //
 // Replaces the TPU kernel `hyperdiffuse_pallas` / `_hyper4_kernel`
 // (qingdai_tpu/ops/pallas_stencil.py), which keeps the whole chain resident
-// in VMEM. The spherical Laplacian is that of `_lap_batched` there:
-//   lap(X) = ( d/dphi(cos * dX/dphi) / cos + d2X/dlambda2 / cos^2 ) / a^2
-// with np.gradient's formula in latitude (central inside, one-sided at rows
-// 0 and H-1), periodic second differences in longitude, and the caller's
-// capped cos map.
+// in VMEM. The spherical Laplacian is that of `_lap_batched` there; its
+// device code (stencil.cuh) is shared with kernel K4 (ocean_substeps.cu).
 //
 // Each Laplacian is two launches over every (m, j, i):
 //   grad_cos:   G = cos * dX/dphi
@@ -25,17 +22,11 @@
 
 #include <cuda_runtime.h>
 
+#include "stencil.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
-
-template <typename T>
-__device__ __forceinline__ T grad_lat(const T* X, long long j, long long i, int H, int W,
-                                      T dlat, T two_dlat) {
-  if (j == 0) return (X[W + i] - X[i]) / dlat;
-  if (j == H - 1) return (X[j * W + i] - X[(j - 1) * W + i]) / dlat;
-  return (X[(j + 1) * W + i] - X[(j - 1) * W + i]) / two_dlat;
-}
 
 template <typename T>
 __global__ void grad_cos_kernel(const T* __restrict__ X, const T* __restrict__ cosm,
@@ -45,7 +36,7 @@ __global__ void grad_cos_kernel(const T* __restrict__ X, const T* __restrict__ c
   const long long p = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (p >= M * HW) return;
   const long long m = p / HW, r = p - m * HW, j = r / W, i = r - j * W;
-  G[p] = cosm[r] * grad_lat(X + m * HW, j, i, H, W, dlat, two_dlat);
+  G[p] = cosm[r] * qd::grad_lat(X + m * HW, j, i, H, W, dlat, two_dlat);
 }
 
 template <typename T>
@@ -58,12 +49,8 @@ __global__ void lap_finish_kernel(const T* __restrict__ X, const T* __restrict__
   const long long p = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (p >= M * HW) return;
   const long long m = p / HW, r = p - m * HW, j = r / W, i = r - j * W;
-  const T* Xm = X + m * HW;
-  const T c = cosm[r];
-  const T term_phi = grad_lat(G + m * HW, j, i, H, W, dlat, two_dlat) / c;
-  const long long ip = (i + 1 == W) ? 0 : i + 1, im = (i == 0) ? W - 1 : i - 1;
-  const T d2 = (Xm[j * W + ip] - T(2) * Xm[r] + Xm[j * W + im]) / dlon2;
-  const T L = (term_phi + d2 / (c * c)) / a2;
+  const T L = qd::lap_value(X + m * HW, G + m * HW, cosm[r], j, i, H, W, dlat, two_dlat,
+                            dlon2, a2);
   out[p] = update ? Fsrc[p] - k4[p] * L * sub_dt : L;
 }
 

@@ -12,9 +12,8 @@ from __future__ import annotations
 
 import torch
 
-from qingdai_tpu import constants as const
-from qingdai_tpu.config import SimConfig
-
+from . import constants as const
+from .config import SimConfig
 from .grid import Grid, grad_lonlat
 from .ops.advect import advect_semilag_multi
 from .ops.reductions import masked_median_of_positive

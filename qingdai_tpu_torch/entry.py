@@ -8,21 +8,24 @@ import os
 import numpy as np
 import torch
 
-from qingdai_tpu import topography as topo
-from qingdai_tpu.config import SimConfig
-
 from . import model as M
+from . import topography as topo
+from .config import SimConfig
+from .grid import resolve_device
 
 
 def build_world(n_lat: int, n_lon: int, dt_seconds: float = 300.0, extra_env=None,
-                device="cpu", dtype=torch.float32, hermetic: bool = True):
-    """Build (model, state) at an explicit grid and dt.
+                device="cuda", dtype=torch.float32, hermetic: bool = True):
+    """Build (model, state) at an explicit grid and dt, on the card unless
+    ``device`` says otherwise (without a card the default raises).
 
     ``extra_env`` adds ``QD_*`` settings for the configuration snapshot.
     ``hermetic=True`` removes every other ambient ``QD_*`` variable while the
     snapshot is taken, so the world depends only on the arguments; the
     environment is restored afterwards either way. The topography comes from
-    the same ``topography`` calls, with the same seed, as the JAX package's."""
+    the port's copy of the JAX package's ``topography`` with the same seed, so
+    the two packages build the same planet."""
+    device = resolve_device(device)
     env = {"QD_N_LAT": str(n_lat), "QD_N_LON": str(n_lon), "QD_DT_SECONDS": str(dt_seconds)}
     env.update(extra_env or {})
     scrub = [k for k in os.environ if k.startswith("QD_") and k not in env] if hermetic else []

@@ -11,7 +11,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from qingdai_tpu import constants as const
+from . import constants as const
 
 
 @dataclasses.dataclass(frozen=True)
@@ -41,8 +41,21 @@ class Grid:
         return (self.n_lat, self.n_lon)
 
 
-def make_grid(n_lat: int, n_lon: int, device="cpu", dtype=torch.float32) -> Grid:
+def resolve_device(device) -> torch.device:
+    """The device the caller asked for. Every entry point defaults to
+    ``"cuda"``; without a card that raises instead of running on the CPU,
+    which the caller must ask for with ``device="cpu"``."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("qingdai_tpu_torch runs on a CUDA card by default and this "
+                           "process sees none; pass device='cpu' to run the plain "
+                           "PyTorch versions on the CPU")
+    return device
+
+
+def make_grid(n_lat: int, n_lon: int, device="cuda", dtype=torch.float32) -> Grid:
     """Build grid metrics. lat ∈ linspace(-90, 90), lon ∈ linspace(0, 360)."""
+    device = resolve_device(device)
     lat = np.linspace(-90.0, 90.0, n_lat)
     lon = np.linspace(0.0, 360.0, n_lon)
     lon_mesh, lat_mesh = np.meshgrid(lon, lat)

@@ -59,8 +59,9 @@ def wrappers() -> dict:
     from .advect_bilinear import advect_bilinear_cuda
     from .hyper4 import hyperdiffuse_cuda
     from .median_pos import median_pos_cuda
+    from .ocean_substeps import ocean_substeps_cuda
     return {"median_pos": median_pos_cuda, "advect_bilinear": advect_bilinear_cuda,
-            "hyper4": hyperdiffuse_cuda}
+            "hyper4": hyperdiffuse_cuda, "ocean_substeps": ocean_substeps_cuda}
 
 
 def launch_counts() -> dict:

@@ -1,12 +1,18 @@
-"""The coupled planet step (port of ``qingdai_tpu/model.py``) for the slice
-without ecology, phytoplankton and river routing.
+"""The coupled planet step (port of ``qingdai_tpu/model.py``): the planet
+with ecology, the individual pool and phytoplankton, without river routing.
 
-Per-step order as in the JAX package: hybrid precip → daily accumulators →
-cloud blending and advection → insolation → lapse/snowpack/glacier → albedo
-synthesis → Teq → atmosphere step → ocean step with SST feedback → land
-bucket → diagnostics. The step never syncs with the host: data-dependent
-choices are ``torch.where``; cadences are Python ``if``s on the host step
-index.
+Per-step order as in the JAX package: hybrid precip → daily accumulators and
+the day-boundary block (ecology daily, individual pool daily, banded albedo)
+→ cloud blending and advection → insolation → lapse/snowpack/glacier →
+individual-pool substep → phytoplankton daily → albedo synthesis (ecology,
+bands, ocean color, snow) → Teq → atmosphere step → ocean step with SST
+feedback and the chlorophyll transport → land bucket → diagnostics.
+
+The step never syncs with the host. Data-dependent choices are
+``torch.where``. Cadences are Python ``if``s on host numbers: the step index
+and the two day accumulators of the clock, which depend only on the step
+count and dt, so each daily block runs once a day and not as a masked
+computation every step.
 """
 
 from __future__ import annotations
@@ -18,11 +24,13 @@ from typing import Optional
 import numpy as np
 import torch
 
-from qingdai_tpu import constants as const
-from qingdai_tpu.config import SimConfig
-
+from . import constants as const
+from .config import SimConfig
 from .dynamics import atmos_step
-from .grid import Grid, make_grid
+from .ecology import individuals as indiv_mod
+from .ecology import phyto as phyto_mod
+from .ecology import population as eco_mod
+from .grid import Grid, make_grid, resolve_device
 from .ocean import ocean_diagnostics, ocean_step, static_substeps
 from .ops.advect import advect_semilag_multi
 from .ops.reductions import area_mean, masked_median_of_positive
@@ -32,9 +40,9 @@ from .physics import energy as en
 from .physics import forcing
 from .physics import hydrology as hyd
 from .physics import orbital
-from .state import (ClockState, EnergyState, LandState, StaticFields, WorldState,
-                    init_albedo_caches, init_atmos, init_clock,
-                    init_energy_state, init_land, init_ocean)
+from .state import (AlbedoCaches, ClockState, EnergyState, LandState, StaticFields,
+                    WorldState, init_albedo_caches, init_atmos, init_clock,
+                    init_energy_state, init_land, init_ocean, round_to)
 
 # QD_ENERGY_AUDIT per-step attribution scalars (area-mean W/m²)
 AUDIT_KEYS = (
@@ -46,7 +54,9 @@ AUDIT_KEYS = (
 
 @dataclasses.dataclass(frozen=True)
 class Model:
-    """Grid, static fields and configuration of one planet."""
+    """Grid, static fields and configuration of one planet, with the
+    subsystem statics and the initial subsystem states of the same build
+    (None where a subsystem is off)."""
     grid: Grid
     cfg: SimConfig
     static: StaticFields
@@ -54,25 +64,28 @@ class Model:
     dt: float
     device: torch.device
     dtype: torch.dtype
-    # the model's random stream; nothing in the ported slice draws from it
-    # (the JAX state's only key user is ecology mutation)
+    # the model's random stream: ecology mutation draws from it
     generator: torch.Generator
+    eco_static: Optional[eco_mod.EcoStatic] = None
+    indiv_static: Optional[indiv_mod.IndivStatic] = None
+    phyto_static: Optional[phyto_mod.PhytoStatic] = None
+    eco_state0: Optional[eco_mod.EcoState] = None
+    indiv_state0: Optional[indiv_mod.IndivState] = None
+    phyto_state0: Optional[phyto_mod.PhytoState] = None
     day_seconds: float = const.DAY_SECONDS
 
 
 def build_model(cfg: SimConfig, land_mask, base_albedo, friction, elevation=None,
-                device="cpu", dtype=torch.float32) -> Model:
-    """Assemble the static data from topography arrays (host side)."""
-    missing = [name for name, on in (("ecology (QD_ECO_ENABLE)", cfg.ecology.enabled),
-                                     ("phytoplankton (QD_PHYTO_ENABLE)", cfg.phyto.enabled),
-                                     ("river routing (QD_HYDRO_ENABLE)",
-                                      cfg.hydrology.routing_enable)) if on]
-    if missing:
+                device="cuda", dtype=torch.float32) -> Model:
+    """Assemble the static data from topography arrays (host side). Runs on
+    the card unless ``device`` says otherwise."""
+    if cfg.hydrology.routing_enable:
         raise NotImplementedError(
-            f"qingdai_tpu_torch does not port {', '.join(missing)} yet (ROADMAP.md "
-            "Queue 1: routing and ecology come next); set those variables to 0")
-    device = torch.device(device)
+            "qingdai_tpu_torch does not port river routing (QD_HYDRO_ENABLE) yet (ROADMAP.md "
+            "Queue 1: routing comes next); set QD_HYDRO_ENABLE=0")
+    device = resolve_device(device)
     grid = make_grid(cfg.run.n_lat, cfg.run.n_lon, device=device, dtype=dtype)
+    mask_np = np.asarray(land_mask)
 
     def as_t(x, dt_=dtype):
         return torch.as_tensor(np.asarray(x)).to(device=device, dtype=dt_)
@@ -89,15 +102,32 @@ def build_model(cfg: SimConfig, land_mask, base_albedo, friction, elevation=None
                             torch.full(grid.shape, Cs_ocean, dtype=dtype, device=device)),
         has_elevation=has_elev,
     )
+    sub = {}
+    if cfg.ecology.enabled:
+        es, eco0, _, _ = eco_mod.build_eco(grid.shape, mask_np, cfg.ecology, device, dtype)
+        sub.update(eco_static=es, eco_state0=eco0)
+        if cfg.ecology.indiv_enable:
+            sub["indiv_static"], sub["indiv_state0"] = indiv_mod.build_individuals(
+                grid.shape, mask_np, es, eco0, cfg.ecology, device, dtype)
+    if cfg.phyto.enabled:
+        sub["phyto_static"], sub["phyto_state0"], _ = phyto_mod.build_phyto(
+            grid.shape, mask_np, cfg.phyto, cfg.ecology, cfg.ocean.H_m, device, dtype)
     return Model(grid=grid, cfg=cfg, static=static,
                  n_ocean_substeps=static_substeps(grid, cfg.ocean, cfg.run.dt_seconds),
                  dt=float(cfg.run.dt_seconds), device=device, dtype=dtype,
-                 generator=torch.Generator(device=device).manual_seed(cfg.run.seed))
+                 generator=torch.Generator(device=device).manual_seed(cfg.run.seed), **sub)
 
 
-def init_world(model: Model, t0_seconds: float = 0.0) -> WorldState:
-    """Fresh initial state in the model's dtype on the model's device."""
+def init_world(model: Model, t0_seconds: float = 0.0, seed: int = 42) -> WorldState:
+    """Fresh initial state in the model's dtype on the model's device. The
+    subsystem states are those of the model's build (``seed`` draws only
+    QD_PHYTO_INIT_RANDOM's noise, as in the JAX package)."""
     cfg, grid, dtype = model.cfg, model.grid, model.dtype
+    phyto0 = model.phyto_state0
+    if phyto0 is not None and cfg.phyto.init_random:
+        _, phyto0, _ = phyto_mod.build_phyto(
+            grid.shape, model.static.land_mask.cpu().numpy(), cfg.phyto, cfg.ecology,
+            cfg.ocean.H_m, model.device, dtype, seed=seed)
     atmos = init_atmos(grid, cfg, dtype)
     ocean = init_ocean(grid, model.static.land_mask, Ts_init=atmos.T_s, dtype=dtype)
     if cfg.run.init_banded:
@@ -109,7 +139,8 @@ def init_world(model: Model, t0_seconds: float = 0.0) -> WorldState:
     return WorldState(atmos=atmos, ocean=ocean, land=init_land(grid, dtype),
                       energy=init_energy_state(cfg, grid, dtype),
                       clock=init_clock(grid, t0_seconds, dtype),
-                      albedo=init_albedo_caches(grid, dtype))
+                      albedo=init_albedo_caches(grid, dtype),
+                      eco=model.eco_state0, indiv=model.indiv_state0, phyto=phyto0)
 
 
 def make_step_fn(model: Model, with_diags: bool = True):
@@ -119,16 +150,24 @@ def make_step_fn(model: Model, with_diags: bool = True):
     reductions; the state trajectory is the same."""
     grid, cfg, static, dt = model.grid, model.cfg, model.static, model.dt
     day_s = model.day_seconds
-    pcfg, hcfg = cfg.physics, cfg.hydrology
+    pcfg, hcfg, ecfg = cfg.physics, cfg.hydrology, cfg.ecology
     a = const.PLANET_RADIUS
     land_mask = static.land_mask
     land = land_mask == 1
     ocean_mask = ~land
     landf = land.to(static.base_albedo.dtype)
     ocean_on = cfg.ocean.enabled
+    es, ist, ps = model.eco_static, model.indiv_static, model.phyto_static
+    eco_on = es is not None and ecfg.enabled
+    indiv_on = eco_on and ist is not None and ecfg.indiv_enable
+    phyto_on = ps is not None and cfg.phyto.enabled
+    # the clock's host accumulators take the values of the model dtype
+    dt_r, day_r = round_to(dt, model.dtype), round_to(day_s, model.dtype)
+    true_ = torch.ones((), dtype=torch.bool, device=model.device)
 
     def step(state: WorldState):
         atmos, clock, alb, lstate = state.atmos, state.clock, state.albedo, state.land
+        eco_state, indiv_state, phyto_state = state.eco, state.indiv, state.phyto
         step_idx = clock.step_idx
 
         # ---- orographic factor + hybrid precip ----
@@ -140,13 +179,33 @@ def make_step_fn(model: Model, with_diags: bool = True):
                                                   atmos.P_cond_flux_last, pcfg,
                                                   orog_factor=orog_factor, smooth_sigma=1.0)
 
-        # ---- daily accumulation and its reset at the day boundary ----
+        # ---- daily accumulation and the day-boundary block ----
         precip_acc = clock.precip_acc_day + torch.nan_to_num(precip) * dt
-        accum_t = clock.accum_t_day + dt
-        is_daily = accum_t >= day_s
-        precip_day_last = torch.where(is_daily, precip_acc, clock.precip_day_last)
-        precip_acc = torch.where(is_daily, 0.0, precip_acc)
-        accum_t = torch.where(is_daily, accum_t - day_s, accum_t)
+        accum_t = round_to(clock.accum_t_day + dt_r, model.dtype)
+        is_daily = accum_t >= day_r
+        alpha_banded_daily, has_banded = alb.alpha_banded_daily, alb.has_alpha_banded
+        if eco_on:
+            soil_idx = torch.clamp(lstate.W_land / max(1e-6, ecfg.soil_water_cap), 0.0, 1.0)
+            soil_idx = soil_idx * (~lstate.glacier_mask)
+        if eco_on and is_daily:
+            eco_state = eco_mod.eco_step_daily(es, eco_state, ecfg, soil_idx, model.generator)
+            # glacier cells: zero LAI
+            eco_state = dataclasses.replace(eco_state, LAI_SK=torch.where(
+                lstate.glacier_mask[None, None], 0.0, eco_state.LAI_SK))
+            if indiv_on:
+                indiv_state, eco_state = indiv_mod.indiv_step_daily(
+                    ist, indiv_state, es, eco_state, ecfg, soil_idx)
+            if ecfg.bands_couple:
+                A = eco_mod.surface_albedo_bands(es, eco_state, ecfg)
+                alpha_banded_daily = torch.clamp(
+                    torch.nansum(A * es.w_b[:, None, None], dim=0), 0.0, 1.0)
+                has_banded = true_
+        if is_daily:
+            precip_day_last = precip_acc
+            precip_acc = torch.zeros_like(precip_acc)
+            accum_t = round_to(accum_t - day_r, model.dtype)
+        else:
+            precip_day_last = clock.precip_day_last
 
         # ---- cloud blending ----
         if pcfg.p_ref is not None:
@@ -212,6 +271,20 @@ def make_step_fn(model: Model, with_diags: bool = True):
             melt_flux_land = torch.zeros_like(atmos.T_s)
             glacier = land & (C_snow_map >= hcfg.glacier_frac)
 
+        # ---- individual-pool substep ----
+        if indiv_on:
+            indiv_state = indiv_mod.indiv_try_substep(ist, indiv_state, es, ecfg, insA, insB,
+                                                      soil_idx, dt, day_s, glacier_mask=glacier)
+
+        # ---- phytoplankton daily ----
+        alpha_water, has_water = alb.alpha_water_scalar, alb.has_alpha_water
+        phyto_accum = round_to(clock.phyto_accum + dt_r, model.dtype)
+        if phyto_on and phyto_accum >= day_r:
+            T_w = state.ocean.sst if ocean_on else atmos.T_s
+            phyto_state = phyto_mod.phyto_step_daily(ps, phyto_state, cfg.phyto, insA, insB, T_w)
+            alpha_water, has_water = phyto_state.alpha_scalar, true_
+            phyto_accum = round_to(phyto_accum - day_r, model.dtype)
+
         # ---- albedo synthesis ----
         ice_frac = 1.0 - torch.exp(-torch.clamp(atmos.h_ice, min=0.0)
                                    / max(1e-6, pcfg.h_ice_ref))
@@ -219,6 +292,26 @@ def make_step_fn(model: Model, with_diags: bool = True):
             base_input = static.base_albedo
         else:
             base_input = torch.full_like(atmos.T_s, pcfg.alpha_water)
+
+        alpha_eco_last = alb.alpha_ecology_last
+        if eco_on and ecfg.subdaily_enable and ecfg.albedo_couple:
+            # the energy accumulates every step; the albedo map refreshes
+            # every QD_ECO_SUBSTEP_EVERY_NPHYS steps and is kept between
+            eco_state, alpha_fresh = eco_mod.eco_step_subdaily(es, eco_state, ecfg, isr, dt)
+            n_every = max(1, int(ecfg.substep_every_nphys))
+            alpha_map = alpha_fresh if (step_idx + 1) % n_every == 0 else alpha_eco_last
+            W_LAI = ecfg.lai_albedo_weight
+            m = land & (~glacier) & torch.isfinite(alpha_map)
+            base_input = torch.where(m, (1.0 - W_LAI) * base_input
+                                     + W_LAI * torch.nan_to_num(alpha_map), base_input)
+            alpha_eco_last = alpha_map
+        if eco_on and ecfg.bands_couple:
+            m2 = land & torch.isfinite(alpha_banded_daily) & has_banded
+            base_input = torch.where(m2, torch.clamp(torch.nan_to_num(alpha_banded_daily),
+                                                     0.0, 1.0), base_input)
+        if phyto_on and cfg.phyto.albedo_couple:
+            m_o = ocean_mask & torch.isfinite(alpha_water) & has_water
+            base_input = torch.where(m_o, torch.clamp(alpha_water, 0.0, 1.0), base_input)
         if hcfg.swe_enable:
             blend = torch.clamp((1.0 - C_snow_map) * base_input + C_snow_map * alpha_snow_map,
                                 0.0, 1.0)
@@ -263,8 +356,13 @@ def make_step_fn(model: Model, with_diags: bool = True):
                                                 cfg.energy)
                 estate = EnergyState(lw_eps0=e0, lw_kc=kc)
 
-            ocn = ocean_step(grid, cfg.ocean, land_mask, ocn, atmos.u, atmos.v, Q_net,
-                             ice_mask, step_idx, dt, model.n_ocean_substeps)
+            # with one substep the chlorophyll stack rides the SST gather
+            share_gather = (phyto_on and cfg.phyto.advection
+                            and model.n_ocean_substeps == 1)
+            ocn, tracers_adv = ocean_step(
+                grid, cfg.ocean, land_mask, ocn, atmos.u, atmos.v, Q_net, ice_mask, step_idx,
+                dt, model.n_ocean_substeps,
+                tracers=phyto_state.C_phyto if share_gather else None)
             ocean_open = ocean_mask & (~ice_mask)
             if cfg.energy.audit:
                 Cs_ocn = cfg.ocean.rho_w * cfg.ocean.cp_w * cfg.run.mld_m
@@ -272,6 +370,13 @@ def make_step_fn(model: Model, with_diags: bool = True):
                     torch.where(ocean_open, Cs_ocn * (ocn.sst - atmos.T_s) / dt, 0.0),
                     grid.area_w)
             atmos = dataclasses.replace(atmos, T_s=torch.where(ocean_open, ocn.sst, atmos.T_s))
+            if phyto_on and cfg.phyto.advection:
+                if share_gather:
+                    phyto_state = phyto_mod.phyto_apply_transport(ps, phyto_state, cfg.phyto,
+                                                                  grid, tracers_adv, dt)
+                else:
+                    phyto_state = phyto_mod.phyto_advect_diffuse(ps, phyto_state, cfg.phyto,
+                                                                 grid, ocn.uo, ocn.vo, dt)
         else:
             Q_net = torch.zeros_like(atmos.T_s)
 
@@ -296,10 +401,14 @@ def make_step_fn(model: Model, with_diags: bool = True):
             precip_acc_day=precip_acc,
             accum_t_day=accum_t,
             precip_day_last=precip_day_last,
-            phyto_accum=clock.phyto_accum + dt,
+            phyto_accum=phyto_accum,
         )
+        alb = AlbedoCaches(alpha_ecology_last=alpha_eco_last,
+                           alpha_banded_daily=alpha_banded_daily, has_alpha_banded=has_banded,
+                           alpha_water_scalar=alpha_water, has_alpha_water=has_water)
         new_state = WorldState(atmos=atmos, ocean=ocn, land=lstate, energy=estate,
-                               clock=clock, albedo=alb)
+                               clock=clock, albedo=alb, eco=eco_state, indiv=indiv_state,
+                               phyto=phyto_state)
         if not with_diags:
             return new_state, {}
 
@@ -332,6 +441,15 @@ def make_step_fn(model: Model, with_diags: bool = True):
         diag["seaice_area_frac"] = area_mean(ice_mask_d.to(atmos.T_s.dtype), grid.area_w)
         diag["seaice_mean_h"] = (torch.sum(torch.where(ice_mask_d, atmos.h_ice, 0.0))
                                  / torch.clamp(torch.sum(ice_mask_d), min=1))
+        if eco_on:
+            lai_tot = torch.sum(eco_state.LAI_SK, dim=(0, 1))
+            land_cnt = torch.clamp(torch.sum(land), min=1)
+            diag["lai_mean"] = torch.sum(torch.where(land, lai_tot, 0.0)) / land_cnt
+            diag["lai_max"] = torch.amax(torch.where(land, lai_tot, 0.0))
+        if phyto_on:
+            diag["chl_mean"] = area_mean(torch.sum(phyto_state.C_phyto, dim=0), grid.area_w)
+            diag["kd490_mean"] = area_mean(phyto_state.Kd_490, grid.area_w)
+            diag["alpha_water_mean"] = area_mean(alpha_water, grid.area_w)
         if ocean_on:
             od = ocean_diagnostics(grid, cfg.ocean, ocn)
             diag["ocean_KE_mean"] = od["KE_mean"]

@@ -80,5 +80,7 @@ def speed(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
 
 def pow_safe(x: torch.Tensor, p) -> torch.Tensor:
     """x**p (x ≥ 0) with zero subgradients at x == 0 for both x and p."""
-    p = torch.as_tensor(p, dtype=x.dtype, device=x.device)
+    # a fill, not a copy from the host: the step never waits on the card
+    p = (p.to(dtype=x.dtype, device=x.device) if isinstance(p, torch.Tensor)
+         else torch.full((), p, dtype=x.dtype, device=x.device))
     return _PowSafe.apply(x, p)

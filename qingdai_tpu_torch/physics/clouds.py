@@ -5,9 +5,8 @@ from __future__ import annotations
 
 import torch
 
-from qingdai_tpu import constants as const
-from qingdai_tpu.config import PhysicsConfig
-
+from .. import constants as const
+from ..config import PhysicsConfig
 from ..grid import Grid, divergence, vorticity
 from ..ops.reductions import area_mean, masked_median_of_positive
 from ..ops.smooth import gaussian_filter

@@ -5,9 +5,8 @@ from __future__ import annotations
 
 import torch
 
-from qingdai_tpu import constants as const
-from qingdai_tpu.config import EnergyConfig
-
+from .. import constants as const
+from ..config import EnergyConfig
 from ..ops import safegrad
 from ..ops.reductions import area_mean_compensated
 

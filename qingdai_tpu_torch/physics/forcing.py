@@ -8,8 +8,7 @@ import math
 import numpy as np
 import torch
 
-from qingdai_tpu import constants as const
-
+from .. import constants as const
 from ..grid import Grid
 from ..ops import safegrad
 from . import orbital

@@ -5,8 +5,7 @@ from __future__ import annotations
 
 import torch
 
-from qingdai_tpu.config import HumidityConfig
-
+from ..config import HumidityConfig
 from ..ops import safegrad
 
 EPSILON = 0.622  # Mw/Md

@@ -5,8 +5,7 @@ from __future__ import annotations
 
 import torch
 
-from qingdai_tpu.config import HydrologyConfig
-
+from ..config import HydrologyConfig
 from ..ops.reductions import area_mean_compensated
 
 

@@ -8,7 +8,7 @@ import math
 
 import torch
 
-from qingdai_tpu import constants as const
+from .. import constants as const
 
 T_BINARY = 2.0 * math.pi * math.sqrt(const.A_BINARY ** 3 / (const.G * const.M_TOTAL_STARS))
 T_PLANET = 2.0 * math.pi * math.sqrt(const.A_PLANET ** 3 / (const.G * const.M_TOTAL_STARS))

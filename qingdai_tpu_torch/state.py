@@ -1,20 +1,22 @@
 """World state and static fields (port of ``qingdai_tpu/state.py``).
 
 Each state group is a frozen dataclass of tensors, replaced whole by
-``dataclasses.replace`` as the step advances. ``ClockState.step_idx`` is a
-host Python int: every cadence in the step is a Python ``if`` on it.
+``dataclasses.replace`` as the step advances. The clock's step counter and
+its two day accumulators are host Python numbers, known from the step count
+and dt: every cadence in the step, the daily ecology and phytoplankton
+blocks included, is a Python ``if`` on them, with no host sync.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+from typing import Optional
 
 import torch
 
-from qingdai_tpu import constants as const
-from qingdai_tpu.config import SimConfig
-
+from . import constants as const
+from .config import SimConfig
 from .grid import Grid
 from .physics import humidity as hum
 from .physics import orbital
@@ -65,16 +67,19 @@ class EnergyState:
 @dataclasses.dataclass(frozen=True)
 class ClockState:
     """Simulation clock. The three astronomical phases are carried and
-    advanced mod 2π each step; t_seconds is approximate bookkeeping."""
+    advanced mod 2π each step; t_seconds is approximate bookkeeping.
+    ``accum_t_day`` and ``phyto_accum`` are host floats rounded to the
+    model's dtype after every update, so they take the values the JAX
+    package's device scalars take."""
     t_seconds: torch.Tensor
     step_idx: int                # host-side global step counter
     phase_rot: torch.Tensor
     phase_binary: torch.Tensor
     phase_planet: torch.Tensor
     precip_acc_day: torch.Tensor
-    accum_t_day: torch.Tensor
+    accum_t_day: float           # seconds since the last day boundary
     precip_day_last: torch.Tensor
-    phyto_accum: torch.Tensor
+    phyto_accum: float           # seconds since the last phytoplankton day
 
 
 @dataclasses.dataclass(frozen=True)
@@ -89,14 +94,19 @@ class AlbedoCaches:
 
 @dataclasses.dataclass(frozen=True)
 class WorldState:
-    """The planet's state for the ported slice (ecology, phytoplankton and
-    routing are not ported yet, so their groups are absent)."""
+    """The planet's state. ``eco``, ``indiv`` and ``phyto`` are
+    ``ecology.population.EcoState``, ``ecology.individuals.IndivState`` and
+    ``ecology.phyto.PhytoState``, or None where the subsystem is off. River
+    routing is not ported yet and has no group."""
     atmos: AtmosState
     ocean: OceanState
     land: LandState
     energy: EnergyState
     clock: ClockState
     albedo: AlbedoCaches
+    eco: Optional[object] = None
+    indiv: Optional[object] = None
+    phyto: Optional[object] = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -108,6 +118,11 @@ class StaticFields:
     friction: torch.Tensor
     C_s_map: torch.Tensor       # surface heat capacity (J m^-2 K^-1)
     has_elevation: bool = False
+
+
+def round_to(x: float, dtype: torch.dtype) -> float:
+    """x rounded to ``dtype``, as a host float."""
+    return float(torch.tensor(x, dtype=torch.float64).to(dtype))
 
 
 def _scalar(x, grid: Grid, dtype) -> torch.Tensor:
@@ -149,10 +164,10 @@ def init_clock(grid: Grid, t0_seconds: float = 0.0, dtype=torch.float32) -> Cloc
         phase_binary=_scalar(math.fmod(orbital.OMEGA_BINARY * t0_seconds, two_pi), grid, dtype),
         phase_planet=_scalar(math.fmod(orbital.OMEGA_PLANET * t0_seconds, two_pi), grid, dtype),
         precip_acc_day=z,
-        accum_t_day=_scalar(0.0, grid, dtype),
+        accum_t_day=0.0,
         precip_day_last=z,
         # fires on the first step, like the reference's phyto_next_time = 0
-        phyto_accum=_scalar(const.DAY_SECONDS, grid, dtype),
+        phyto_accum=round_to(const.DAY_SECONDS, dtype),
     )
 
 

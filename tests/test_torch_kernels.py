@@ -1,4 +1,5 @@
-"""The three CUDA kernels against their plain PyTorch versions on the card.
+"""The four CUDA kernels against their plain PyTorch versions on the card.
+K4's operands are those ``chip_smoke.py`` holds it to.
 
 Marked ``gpu``: without a CUDA device every test skips. The file imports no
 JAX, so on a machine with a card and without JAX it runs alone with
@@ -11,10 +12,11 @@ import numpy as np
 import pytest
 import torch
 
-from qingdai_tpu import constants as const
-from qingdai_tpu_torch import kernels
-from qingdai_tpu_torch.kernels import advect_bilinear, hyper4, median_pos
+from chip_smoke import k4_operands
+from qingdai_tpu_torch import constants as const
+from qingdai_tpu_torch import kernels, ocean
 from qingdai_tpu_torch.grid import make_grid
+from qingdai_tpu_torch.kernels import advect_bilinear, hyper4, median_pos
 from qingdai_tpu_torch.ops import advect, reductions, stencil
 
 pytestmark = pytest.mark.gpu
@@ -103,3 +105,31 @@ def test_wrappers_refuse_bad_input(dev):
         hyper4.hyperdiffuse_cuda(x[None], x[None][:, :, ::2], 300.0, 1, 0.1, 0.1,
                                          x, 1.0)
     assert math.isfinite(float(reductions.masked_median_of_positive(x)))
+    with pytest.raises(ValueError):
+        mom, st, forc, geo, params = k4_operands(dev, torch.float32, 0, 1, 1, 0.0)
+        ocean.ocean_substeps(mom, st, forc, geo[:11], **params)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("n_tracers,n_sub,k4_nsub,K_h", [
+    (10, 1, 1, 5.0e3), (0, 1, 2, 5.0e3), (0, 2, 1, 0.0), (10, 1, 2, 0.0)])
+def test_ocean_substeps_kernel_matches_plain(dev, dtype, n_tracers, n_sub, k4_nsub, K_h):
+    """Each output plane within tol · max|plane|: f32 1e-4, f64 1e-12.
+
+    The departure coordinates are numbers up to W = 360 whose f32 ulp is
+    3e-5 of a cell, so one ulp of difference in a departure point (from one
+    ulp of u) moves an interpolated value by up to 3e-5 of the largest
+    neighbour difference, which for the random tracers in [0, 1] is ~1;
+    1e-4 allows a few ulps. The kernel's η mean also adds its block sums in
+    another order than torch.sum."""
+    mom, st, forc, geo, params = k4_operands(dev, dtype, n_tracers, n_sub, k4_nsub, K_h)
+    before = kernels.launch_counts()["ocean_substeps"]
+    got = ocean.ocean_substeps(mom, st, forc, geo, **params)
+    assert kernels.launch_counts()["ocean_substeps"] == before + 1
+    ref = ocean.ocean_substeps_plain(mom, st, forc, geo, **params)
+    tol = 1e-4 if dtype == torch.float32 else 1e-12
+    for g_, r_ in zip(got, ref):
+        assert g_.shape == r_.shape
+        for k in range(r_.shape[0]):
+            scale = float(r_[k].abs().max())
+            assert float((g_[k] - r_[k]).abs().max()) <= tol * scale, k

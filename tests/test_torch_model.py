@@ -1,11 +1,12 @@
 """The port's coupled step against the JAX package's, on the CPU at 19×36.
 
-Both packages build the slice (ecology, phytoplankton and routing off) from
-one hermetic environment. The JAX step is jitted once per module and warmed
-24 steps, past the cold-start precipitation fallback and the median knife
-edge, then its state is carried into the port with ``convert``. Tolerances
-are relative to each leaf's largest |value|: 1e-10 after one float64 step,
-1e-8 after a 12-step chunk.
+Both packages build two configurations from one hermetic environment: the
+slice (ecology, phytoplankton and routing off) and the planet (routing off:
+ecology, the individual pool and phytoplankton on). Each JAX step is jitted
+once per module and warmed 24 steps, past the cold-start precipitation
+fallback and the median knife edge, then its state is carried into the port
+with ``convert``. Tolerances are relative to each leaf's largest |value|:
+1e-10 after one float64 step, 1e-8 after a 12-step chunk.
 """
 
 import os
@@ -32,6 +33,8 @@ torch.set_num_threads(1)
 
 N_LAT, N_LON = 19, 36
 SLICE = {"QD_ECO_ENABLE": "0", "QD_PHYTO_ENABLE": "0", "QD_HYDRO_ENABLE": "0"}
+# the default planet without routing; the seed fixes the species-mode draw
+PLANET = {"QD_HYDRO_ENABLE": "0", "QD_ECO_RAND_SEED": "7"}
 REPO = Path(__file__).resolve().parents[1]
 
 
@@ -43,7 +46,26 @@ def warm():
     jstep = jax.jit(JM.make_step_fn(jm))
     for _ in range(24):
         js, _ = jstep(js)
-    tm, _ = entry.build_world(N_LAT, N_LON, extra_env=SLICE, dtype=torch.float64)
+    tm, _ = entry.build_world(N_LAT, N_LON, extra_env=SLICE, device="cpu", dtype=torch.float64)
+    return jm, jstep, js, tm
+
+
+@pytest.fixture(scope="module")
+def warm_planet():
+    """The planet as ``warm``, with both day accumulators six steps before
+    the boundary, so a 12-step chunk runs every daily block once."""
+    import dataclasses
+    jm, js = graft._build_world(N_LAT, N_LON, with_network=False, extra_env=PLANET,
+                                dtype=jnp.float64, hermetic=True)
+    jstep = jax.jit(JM.make_step_fn(jm))
+    for _ in range(24):
+        js, _ = jstep(js)
+    # the accumulators' own dtype, so the jitted step is not traced again
+    near = jnp.asarray(jm.day_seconds - 6 * jm.dt, js.clock.accum_t_day.dtype)
+    js = dataclasses.replace(js, clock=dataclasses.replace(js.clock, accum_t_day=near,
+                                                           phyto_accum=near))
+    tm, _ = entry.build_world(N_LAT, N_LON, extra_env=PLANET, device="cpu",
+                              dtype=torch.float64)
     return jm, jstep, js, tm
 
 
@@ -177,9 +199,10 @@ def test_ocean_step_matches_jax(warm):
                               js.atmos.u, js.atmos.v, jnp.asarray(x["Q_net"]),
                               jnp.asarray(x["ice"]), jnp.asarray(24), jm.dt, 1,
                               adv_plan=jm.adv_plan_ocean)
-    to = tocean.ocean_step(tm.grid, tm.cfg.ocean, tm.static.land_mask, ts.ocean, ts.atmos.u,
-                           ts.atmos.v, torch.as_tensor(x["Q_net"]), torch.as_tensor(x["ice"]),
-                           24, tm.dt, 1)
+    to, trc = tocean.ocean_step(tm.grid, tm.cfg.ocean, tm.static.land_mask, ts.ocean,
+                                ts.atmos.u, ts.atmos.v, torch.as_tensor(x["Q_net"]),
+                                torch.as_tensor(x["ice"]), 24, tm.dt, 1)
+    assert trc is None
     for f in ("uo", "vo", "eta", "sst"):
         assert _rel_errs({f: getattr(jo, f)}, {f: getattr(to, f)})[f] <= 1e-12, f
     jd = jocean.ocean_diagnostics(jm.grid, jm.cfg.ocean, jo)
@@ -187,34 +210,68 @@ def test_ocean_step_matches_jax(warm):
 
 
 def test_float32_build_keeps_float32():
-    tm, ts = entry.build_world(N_LAT, N_LON, extra_env=SLICE, dtype=torch.float32)
+    tm, ts = entry.build_world(N_LAT, N_LON, extra_env=PLANET, device="cpu",
+                               dtype=torch.float32)
     ts, td = TM.make_step_fn(tm)(ts)
     for k, v in convert.world_to_numpy(ts).items():
-        if k == "clock.step_idx":
-            continue
-        assert v.dtype in (np.float32, np.bool_), (k, v.dtype)
+        if k in ("clock.step_idx", "clock.accum_t_day", "clock.phyto_accum"):
+            continue   # host numbers
+        assert v.dtype in (np.float32, np.bool_, np.int32), (k, v.dtype)
     assert all(v.dtype == torch.float32 for v in td.values())
     assert all(np.isfinite(v).all() for k, v in convert.world_to_numpy(ts).items()
                if k != "clock.step_idx" and "alpha" not in k)
 
 
-@pytest.mark.parametrize("flag", ["QD_ECO_ENABLE", "QD_PHYTO_ENABLE", "QD_HYDRO_ENABLE"])
+@pytest.mark.parametrize("flag", ["QD_HYDRO_ENABLE"])
 def test_build_model_refuses_unported_subsystems(flag):
     env = dict(SLICE, **{flag: "1"})
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        entry.build_world(N_LAT, N_LON, extra_env=env)
+        entry.build_world(N_LAT, N_LON, extra_env=env, device="cpu")
 
 
 def test_port_never_imports_jax():
+    """A build and a step of the planet (ecology and phytoplankton on) load
+    no JAX and no module of the JAX package."""
     code = ("import sys, torch\n"
             "from qingdai_tpu_torch import entry, model as M\n"
-            "m, s = entry.build_world(19, 36, extra_env={'QD_ECO_ENABLE': '0', "
-            "'QD_PHYTO_ENABLE': '0', 'QD_HYDRO_ENABLE': '0'})\n"
+            "m, s = entry.build_world(19, 36, extra_env={'QD_HYDRO_ENABLE': '0'}, "
+            "device='cpu')\n"
+            "assert m.eco_static is not None and m.phyto_static is not None\n"
             "s, d = M.make_step_fn(m)(s)\n"
-            "assert bool(torch.isfinite(d['Ts_mean']))\n"
-            "print('jax' in sys.modules)\n")
+            "assert bool(torch.isfinite(d['Ts_mean'])) and bool(torch.isfinite(d['chl_mean']))\n"
+            "print(sorted(k for k in sys.modules if k == 'jax' or k.startswith('jax.')\n"
+            "             or k == '__graft_entry__' or k == 'qingdai_tpu'\n"
+            "             or k.startswith('qingdai_tpu.')))\n")
     env = dict(os.environ, PYTHONPATH=str(REPO))
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True,
                          text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    assert out.stdout.strip() == "False"
+    assert out.stdout.strip() == "[]"
+
+
+def test_planet_one_step_matches_jax(warm_planet):
+    _, jstep, js, tm = warm_planet
+    assert tm.eco_static is not None and tm.indiv_static is not None
+    js1, jd = jstep(js)
+    ts1, td = TM.make_step_fn(tm)(convert.world_from_numpy(js, "cpu", torch.float64))
+    assert {"lai_mean", "chl_mean", "kd490_mean"} <= set(td)
+    _assert_world_close(js1, ts1, 1e-10)
+    _assert_diags_close(jd, td, 1e-10)
+
+
+def test_planet_chunk_crosses_day_boundary(warm_planet):
+    """12 steps from six before the day boundary: the ecology, individual
+    and phytoplankton daily blocks run once, at step 6."""
+    _, jstep, js, tm = warm_planet
+    ts = convert.world_from_numpy(js, "cpu", torch.float64)
+    assert ts.clock.accum_t_day == ts.clock.phyto_accum == tm.day_seconds - 6 * tm.dt
+    rows = []
+    for _ in range(12):
+        js, d = jstep(js)
+        rows.append(d)
+    jd = {k: np.stack([np.asarray(r[k]) for r in rows]) for k in rows[0]}
+    ts, td = TM.make_chunk_fn(tm, 12)(ts)
+    assert ts.clock.accum_t_day == 6 * tm.dt
+    assert int(ts.indiv.fire_idx) == 0          # the individual pool's day ended
+    _assert_world_close(js, ts, 1e-8)
+    _assert_diags_close(jd, td, 1e-8)

@@ -47,7 +47,8 @@ def close(got, ref, rel):
 
 @pytest.fixture(scope="module")
 def grids():
-    return jgrid.make_grid(H, W, dtype=jnp.float64), tgrid.make_grid(H, W, dtype=torch.float64)
+    return (jgrid.make_grid(H, W, dtype=jnp.float64),
+            tgrid.make_grid(H, W, device="cpu", dtype=torch.float64))
 
 
 def _winds(rng, shape, scale=80.0):

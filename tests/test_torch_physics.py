@@ -35,7 +35,7 @@ torch.set_num_threads(1)
 H, W = 19, 36
 CFG = SimConfig()
 JG = jgrid.make_grid(H, W, dtype=jnp.float64)
-TG = tgrid.make_grid(H, W, dtype=torch.float64)
+TG = tgrid.make_grid(H, W, device="cpu", dtype=torch.float64)
 
 
 def _inputs(seed):
