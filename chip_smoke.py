@@ -9,12 +9,16 @@ Phases, each of which raises on failure (exit code non-zero):
   2. build the four CUDA kernels from ``qingdai_tpu_torch/csrc`` (one nvcc per
      source, in parallel) and print ptxas' register report;
   3. each kernel against its plain PyTorch version on the card, float32 and
-     float64, at the main path's shapes, with the kernel's, the plain
-     version's and (where one exists) one PyTorch call's times, in the order
-     plain, kernel, kernel, plain: device time per call (the card's kernel
-     times under torch.profiler over 20 calls), which the JSON line
-     reports, and CUDA-event time of one call (median of 50), which
-     includes the host's launch while the card waits;
+     float64, at the main path's shapes (K1 bit-equal on the fields of
+     ``k1_cases`` and a 721×1440 field; K2's departure points bit-equal to
+     ``departure_indices`` and its stack within tolerance, ``k2_check``),
+     with the kernel's, the plain version's and (where one exists) one
+     PyTorch call's times, in the order plain, kernel, kernel, plain: device
+     time per call (the card's kernel times under torch.profiler over 20
+     calls), which the JSON line reports, and CUDA-event time of one call
+     (median of 50), which includes the host's launch while the card waits;
+     K1's and K2's times before their redesign beside; then K1's stages
+     from its own stamps (``k1_anatomy``);
   4. the main path, the default planet with river routing off (181×360,
      float32, ecology, the individual pool and phytoplankton on), built with
      no device argument: one planetary day of 240 steps, then a second,
@@ -57,6 +61,11 @@ KERNELS = [
 # float32 operations/s outside the tensor cores
 PEAK_BYTES = 3.35e12
 PEAK_F32 = 67e12
+# device ms per call of K1 and K2 before their redesign (one-block radix
+# select; departure points from separate PyTorch launches), this script's
+# phase 3 on an NVIDIA H100 80GB HBM3 at 700 W
+BEFORE_REDESIGN = {"median_pos": 0.09444, "advect_bilinear": 0.00264}
+BEFORE_REDESIGN_CARD = "NVIDIA H100 80GB HBM3, 700.00 W"
 
 
 def card_label() -> str:
@@ -139,6 +148,118 @@ def k4_operands(dev, dtype, n_tracers, n_sub, k4_nsub, K_h, seed=4):
         on(dev, r.random(shape) < 0.15, torch.bool), 300.0, n_sub, tracers)
 
 
+def k1_cases(r, dtype, shape=(H, W)):
+    """K1's fields: the main path's kinds and the edges of ``x > 0`` (−0.0,
+    denormals, NaN, ±inf, one or two positives, one binade, all positive)."""
+    base = r.standard_normal(shape)
+    n = base.size
+    tiny = 2.0 ** (-149 if dtype == torch.float32 else -1074)     # least denormal
+    neg = -np.abs(base)
+    one, two, special, inf_most = neg.copy(), neg.copy(), base.copy(), base.copy()
+    one.flat[r.integers(n)] = 3.5
+    two.flat[r.choice(n, 2, replace=False)] = [2.25, 7.5]
+    special.flat[r.choice(n, 600, replace=False)] = np.repeat([np.inf, -np.inf, np.nan], 200)
+    inf_most[r.random(shape) < 0.5] = np.inf                        # the median is +inf
+    kind = r.random(shape)
+    return {
+        "random": base,
+        "precip": np.where(r.random(shape) < 0.6, 0.0, np.abs(base) * 1e-5),
+        "odd": np.where(np.arange(n).reshape(shape) == 0, 0.0, np.abs(base) + 0.1),
+        "even": np.abs(base) + 0.1,
+        "ties": r.integers(-3, 5, shape).astype(np.float64),
+        "fallback": neg,
+        "neg_zero": np.where(r.random(shape) < 0.5, -0.0, np.abs(base)),
+        "denormal": np.where(kind < 0.3, 0.0, np.where(kind < 0.4, np.abs(base),
+                                                       r.integers(1, 1 << 20, shape) * tiny)),
+        "one_pos": one,
+        "two_pos": two,
+        "inf_nan": special,
+        "inf_median": inf_most,
+        "one_binade": np.where(r.random(shape) < 0.6, 0.0, 2.0 ** -17 * (1.0 + r.random(shape))),
+        "all_pos": np.exp(r.uniform(-80.0, 80.0, shape)),
+    }
+
+
+def k2_check(dev, dtype, M, case, r, tol):
+    """One K2 case on the card: the kernel's departure points bit-equal to
+    ``departure_indices``, the stack within tol · max|F| of the plain version,
+    and ``advect_semilag_multi`` launching the kernel. Cases: "winds", random
+    winds capped at 200 m/s; "poles", the pole rows at 150–200 m/s, whose
+    departures lie ~4e5–5.4e5 cells away under the 1e-6 cos cap; "far", a cos
+    cap of 1e-12, departures beyond 2^30 cells. Returns (max|err|, dep_j)."""
+    from qingdai_tpu_torch import constants as const
+    from qingdai_tpu_torch.grid import make_grid
+    from qingdai_tpu_torch.kernels.advect_bilinear import advect_bilinear_cuda
+    from qingdai_tpu_torch.ops import advect
+
+    g = make_grid(H, W, device=dev, dtype=dtype)
+    F = on(dev, 280.0 + 20.0 * r.standard_normal((M, H, W)), dtype)
+    u = np.clip(120.0 * r.standard_normal((H, W)), -200, 200)
+    v = np.clip(120.0 * r.standard_normal((H, W)), -200, 200)
+    cos = g.coslat_cap_tiny
+    if case == "poles":
+        u[[0, -1]] = r.choice([-1.0, 1.0], (2, W)) * r.uniform(150.0, 200.0, (2, W))
+    elif case == "far":
+        cos = torch.clamp(g.coslat, min=1e-12)
+    u, v = on(dev, u, dtype), on(dev, v, dtype)
+    args = (300.0, const.PLANET_RADIUS, g.dlat_rad, g.dlon_rad, cos)
+    got, dj, di = advect_bilinear_cuda(F, u, v, *args, departures=True)
+    rj, ri = advect.departure_indices((H, W), u, v, *args, dtype)
+    for name, a_, b_ in (("dep_j", dj, rj), ("dep_i", di, ri)):
+        if not torch.equal(a_, b_):
+            bad = int((a_ != b_).sum())
+            raise AssertionError(f"K2 {dtype} M={M} {case}: {name} differs from "
+                                 f"departure_indices in {bad} cells")
+    reach = float((ri - torch.arange(W, device=dev, dtype=dtype)).abs().max())
+    want = {"poles": 2.0 ** 16, "far": 2.0 ** 30}.get(case, 0.0)
+    if not reach > want:
+        raise AssertionError(f"K2 {case}: departures reach only {reach} cells")
+    ref = advect.bilinear_wrap_gather_multi(F, rj, ri)
+    err = float((got - ref).abs().max())
+    if not err <= tol * float(F.abs().max()):
+        raise AssertionError(f"K2 {dtype} M={M} {case}: max|err| {err} > {tol} * max|F|")
+    before = advect_bilinear_cuda.launches
+    if not torch.equal(advect.advect_semilag_multi(F, u, v, *args), got):
+        raise AssertionError(f"K2 {dtype} M={M} {case}: advect_semilag_multi differs")
+    if advect_bilinear_cuda.launches != before + 1:
+        raise AssertionError("advect_semilag_multi did not launch K2")
+    return err, dj
+
+
+def k1_stage_names(slots):
+    """Names of the stages between K1's ``slots`` trace stamps."""
+    passes = (slots - 2) // 2
+    names = []
+    for p in range(1, passes + 1):
+        hist = "load + histogram" if p == 1 else f"pass {p} histogram"
+        if 1 < p < passes:
+            hist += " + compaction"
+        names += [hist, f"pass {p} cluster merge + digit search"]
+    return names + ["result + exit barrier"]
+
+
+def k1_anatomy(x, kernel_ms, label, reps=50):
+    """Where K1's time goes: the first block's stage boundaries over ``reps``
+    traced launches (global timer in ns, SM cycles), as mean µs per stage;
+    the rest of the device time per call is launch and teardown."""
+    from qingdai_tpu_torch.kernels.median_pos import median_pos_cuda, trace_slots
+
+    slots = trace_slots(x.dtype)
+    traces = torch.zeros((reps, 2, slots), dtype=torch.int64, device=x.device)
+    for k in range(reps):
+        median_pos_cuda(x, 1e-6, trace=traces[k])
+    t = traces.double().cpu().numpy()
+    d_ns = np.diff(t[:, 0], axis=1).mean(axis=0)
+    d_cyc = np.diff(t[:, 1], axis=1).mean(axis=0)
+    names = k1_stage_names(slots)
+    inside = float(d_ns.sum()) / 1e3
+    parts = ", ".join(f"{nm} {ns / 1e3:.3f} us ({cyc:.0f} cycles)"
+                      for nm, ns, cyc in zip(names, d_ns, d_cyc))
+    print(f"K1 anatomy ({x.dtype}, {tuple(x.shape)}, mean of {reps} traced launches): {parts}; "
+          f"inside the kernel {inside:.3f} us of {kernel_ms * 1e3:.3f} us device time, "
+          f"the rest launch and teardown; SM clock {d_cyc.sum() / d_ns.sum():.3f} GHz [{label}]")
+
+
 def phase3_kernels(dev, label, rate):
     from qingdai_tpu_torch import constants as const
     from qingdai_tpu_torch import ocean
@@ -152,15 +273,11 @@ def phase3_kernels(dev, label, rate):
     for dtype in (torch.float32, torch.float64):
         g = make_grid(H, W, device=dev, dtype=dtype)
         # K1: bit-equal to the sort-based median
-        base = r.standard_normal((H, W))
-        cases = {
-            "random": base,
-            "precip": np.where(r.random((H, W)) < 0.6, 0.0, np.abs(base) * 1e-5),
-            "odd": np.where(np.arange(H * W).reshape(H, W) == 0, 0.0, np.abs(base) + 0.1),
-            "even": np.abs(base) + 0.1,
-            "ties": r.integers(-3, 5, (H, W)).astype(np.float64),
-            "fallback": -np.abs(base),
-        }
+        cases = k1_cases(r, dtype)
+        # a field whose eighth exceeds K1's shared-memory stage
+        big = (721, 1440)
+        cases["precip_721x1440"] = np.where(r.random(big) < 0.6, 0.0,
+                                            np.abs(r.standard_normal(big)) * 1e-5)
         for case, x in cases.items():
             xt = on(dev, x, dtype)
             got = reductions.masked_median_of_positive(xt, 1e-6)
@@ -169,24 +286,16 @@ def phase3_kernels(dev, label, rate):
                 raise AssertionError(f"K1 {case} {dtype}: {float(got)!r} != {float(ref)!r}")
         print(f"K1 median_pos {dtype}: bit-equal on {sorted(cases)}")
 
-        # K2: winds capped at 200 m/s; polar rows wrap across the poles
+        # K2: the kernel's departure points bit-equal to departure_indices,
+        # the advected stack within tol · max|F| of the plain version
         tol = 1e-6 if dtype == torch.float32 else 1e-12
-        for M in (1, 2):
-            F = on(dev, 280.0 + 20.0 * r.standard_normal((M, H, W)), dtype)
-            u = on(dev, np.clip(120.0 * r.standard_normal((H, W)), -200, 200), dtype)
-            v = on(dev, np.clip(120.0 * r.standard_normal((H, W)), -200, 200), dtype)
-            dj, di = advect.departure_indices((H, W), u, v, 300.0, A, g.dlat_rad, g.dlon_rad,
-                                              g.coslat_cap_tiny, dtype)
-            got = advect.advect_semilag_multi(F, u, v, 300.0, A, g.dlat_rad, g.dlon_rad,
-                                              g.coslat_cap_tiny)
-            ref = advect.bilinear_wrap_gather_multi(F, dj, di)
-            err = float((got - ref).abs().max())
-            torch.testing.assert_close(got, ref, rtol=tol, atol=tol * float(F.abs().max()))
+        for M, case in ((1, "winds"), (2, "winds"), (11, "winds"), (2, "poles"), (1, "far")):
+            err, dj = k2_check(dev, dtype, M, case, r, tol)
             if dtype == torch.float32:
                 rec["advect_bilinear"]["max_abs_err"] = max(rec["advect_bilinear"]["max_abs_err"],
                                                             err)
-            print(f"K2 advect_bilinear {dtype} M={M}: max|err| {err:.3e} "
-                  f"(max|F| {float(F.abs().max()):.1f}, dep_j min {float(dj.min()):.2f})")
+            print(f"K2 advect_bilinear {dtype} M={M} {case}: departure points bit-equal, "
+                  f"max|err| {err:.3e}, dep_j min {float(dj.min()):.2f}")
 
         # K3: the real k4 maps and cos caps of the atmosphere and the ocean
         tol = 1e-5 if dtype == torch.float32 else 1e-11
@@ -245,8 +354,9 @@ def phase3_kernels(dev, label, rate):
     F2 = on(dev, 280.0 + 20.0 * r.standard_normal((2, H, W)), torch.float32)
     u = on(dev, np.clip(60.0 * r.standard_normal((H, W)), -200, 200), torch.float32)
     v = on(dev, np.clip(30.0 * r.standard_normal((H, W)), -200, 200), torch.float32)
-    dj, di = advect.departure_indices((H, W), u, v, 300.0, A, g.dlat_rad, g.dlon_rad,
-                                      g.coslat_cap_tiny, torch.float32)
+    cos = g.coslat_cap_tiny
+    dj, di = advect.departure_indices((H, W), u, v, 300.0, A, g.dlat_rad, g.dlon_rad, cos,
+                                      torch.float32)
     F5 = on(dev, 30.0 * r.standard_normal((5, H, W)), torch.float32)
     k4 = (0.02 * g.k4_map_unit / 300.0)[None].expand(5, H, W).contiguous()
     mom, st, forc, geo, params = k4_operands(dev, torch.float32, N_SPECIES, 1, 1, 5.0e3)
@@ -257,8 +367,11 @@ def phase3_kernels(dev, label, rate):
     pairs = {
         "median_pos": (lambda: median_pos_cuda(x, 1e-6),
                        lambda: reductions.masked_median_of_positive_ref(x, 1e-6)),
-        "advect_bilinear": (lambda: advect_bilinear_cuda(F2, dj, di),
-                            lambda: advect.bilinear_wrap_gather_multi(F2, dj, di)),
+        "advect_bilinear": (lambda: advect_bilinear_cuda(F2, u, v, 300.0, A, g.dlat_rad,
+                                                         g.dlon_rad, cos),
+                            lambda: advect.bilinear_wrap_gather_multi(F2, *advect.departure_indices(
+                                (H, W), u, v, 300.0, A, g.dlat_rad, g.dlon_rad, cos,
+                                torch.float32))),
         "hyper4": (lambda: hyperdiffuse_cuda(F5, k4, 300.0, 1, g.dlat_rad, g.dlon_rad,
                                              g.coslat_cap_02, A),
                    lambda: stencil.hyperdiffuse_multi_ref(F5, k4, 300.0, 1, g.dlat_rad,
@@ -272,7 +385,7 @@ def phase3_kernels(dev, label, rate):
     # and the float operations it does, at these shapes
     work = {
         "median_pos": (HW * f4 + f4, 2 * HW),
-        "advect_bilinear": ((2 * 2 + 2) * HW * f4, (2 * 7 + 10) * HW),
+        "advect_bilinear": ((2 * 2 + 3) * HW * f4, (19 + 2 * 7) * HW),
         "hyper4": ((5 * 2 + 1 + 5) * HW * f4, 5 * 70 * HW),
         "ocean_substeps": ((3 + n_st + 3 + 12 + 3 + n_st) * HW * f4,
                            (60 + 3 * 70 + 7 * n_st + 60) * HW),
@@ -294,11 +407,15 @@ def phase3_kernels(dev, label, rate):
             rec[name]["library_ms"] = device_ms(library[name])
             lib = (f", one PyTorch call {rec[name]['library_ms']:.5f} ms "
                    f"(events {time_ms(library[name]):.4f})")
+        if name in BEFORE_REDESIGN:
+            lib += (f", before the redesign {BEFORE_REDESIGN[name]:.5f} ms "
+                    f"[{BEFORE_REDESIGN_CARD}]")
         print(f"time {name} (main-path shape, float32), device ms per call: kernel "
               f"{k1:.5f}/{k2:.5f}, plain {p1:.5f}/{p2:.5f}{lib}; events: kernel "
               f"{f1:.4f}/{f2:.4f}, plain {e1:.4f}/{e2:.4f}; bound {rec[name]['bound_ms']:.5f} ms "
               f"({rec[name]['bound_by']}: {nbytes} B, {nops} flop), "
               f"{rec[name]['bound_copy_ms']:.5f} ms at the measured copy rate [{label}]")
+    k1_anatomy(x, rec["median_pos"]["ms"], label)
     return rec
 
 

@@ -1,5 +1,6 @@
-// K2: bilinear interpolation of a field stack at departure points, periodic
-// in both axes.
+// K2: semi-Lagrangian advection of a field stack in one launch, from the
+// winds to the advected stack: departure points and bilinear interpolation,
+// periodic in both axes.
 //
 // Replaces the TPU kernel `advect_windowed_pallas` / `_window_kernel`
 // (qingdai_tpu/ops/pallas_advect.py), which forms the interpolation as a
@@ -7,70 +8,158 @@
 // exact-row gather and the polar band pass of `_advect_windowed`
 // (qingdai_tpu/ops/advect.py). A gather costs the H100 nothing special, so
 // one thread per output cell (j, i) reads its four corners directly, on
-// every row, the polar rows included:
-//   j0 = floor(dep_j) mod H, i0 = floor(dep_i) mod W (floor mod, as jnp.mod:
-//   C's % truncates, so a negative index is folded back into [0, n)),
-//   corners (j0,i0), (j0,i0+1), (j0+1,i0), (j0+1,i0+1), all mod (H, W),
-//   weights and sum order as `bilinear_wrap_gather_multi`.
-// The thread loops over the M fields, reusing the four weights and indices.
+// every row, the polar rows included. It also computes the departure point
+// itself, which in plain PyTorch (`departure_indices`) is ~13 launches.
 //
-// What bounds it on the H100: device-memory bytes. Each call reads the
-// [M,H,W] stack and the two index maps and writes [M,H,W]; at 181x360 that
-// is under 2 MB, which L2 holds, so in practice the launch latency dominates.
+// Departure points, bit-equal to `ops.advect.departure_indices` on the card.
+// The scalars are cast to T first, as PyTorch casts a Python number to the
+// tensor's type. PyTorch divides a CUDA tensor by a Python number as a
+// product with the reciprocal taken in T, so the launcher passes 1/a, 1/dlat
+// and 1/dlon rounded in T, and
+//   dlam = (u*dt) / (a*cos)     (IEEE division of two tensors)
+//   dx = dlam * (1/dlon),  dy = ((v*dt) * (1/a)) * (1/dlat)
+//   dep_j = (T)j - dy,  dep_i = (T)i - dx.
+// `--fmad=false` (build.py) keeps every product rounded on its own.
+//
+// Interpolation, as `bilinear_wrap_gather_multi`: j0 = floor(dep_j) mod H,
+// i0 = floor(dep_i) mod W (floor mod, as jnp.mod), corners (j0,i0),
+// (j0,i0+1), (j0+1,i0), (j0+1,i0+1) wrapped, weights and sum order
+// w00, w01, w10, w11 as there. The index math is 32-bit: a conditional add
+// or subtract when the offset is within one period, a 32-bit % beyond that
+// (the pole rows' departures reach ~5.4e5 cells at 200 m/s under the 1e-6
+// cos cap), and an exact floating-point remainder when |floor(dep)| >= 2^30,
+// so that no conversion is undefined.
+//
+// What bounds it on the H100: the launch. Each call reads the [M,H,W] stack
+// and u, v, cos and writes [M,H,W]; at 181x360 and M = 2 that is 1.8 MB,
+// which L2 holds, and the dependent chain per thread is one round of loads,
+// the departure arithmetic (one IEEE division) and one round of 4M gathers.
+// The design keeps that chain short: no 64-bit division, all 4M gathers of
+// the specialised M = 1 and M = 2 paths issued before the sums, loads
+// through the read-only path, and 32 x 8 blocks so that a warp's corners
+// share cache lines under smooth winds.
 
 #include <cuda_runtime.h>
 
 namespace {
 
-__device__ __forceinline__ long long floor_mod(long long a, int n) {
-  long long r = a % n;
-  return r < 0 ? r + n : r;
+constexpr int kBX = 32;
+constexpr int kBY = 8;
+
+// floor(dep) mod n for an integral-valued f; any finite or non-finite f
+// gives an index in [0, n) (NaN and inf give 0: their weights are NaN).
+template <typename T>
+__device__ __forceinline__ int wrap_index(T f, int n) {
+  if (fabs(f) < T(1 << 30)) {
+    int k = (int)f;
+    if (k >= n) {
+      k -= n;
+      if (k >= n) k %= n;
+    } else if (k < 0) {
+      k += n;
+      if (k < 0) {
+        k %= n;
+        if (k < 0) k += n;
+      }
+    }
+    return k;
+  }
+  T r = fmod(f, T(n));  // exact
+  if (r < T(0)) r += T(n);
+  return (r >= T(0) && r < T(n)) ? (int)r : 0;
 }
 
 template <typename T>
-__global__ void advect_bilinear_kernel(const T* __restrict__ f,
-                                       const T* __restrict__ dep_j,
-                                       const T* __restrict__ dep_i,
-                                       T* __restrict__ out, int M, int H, int W) {
-  const long long HW = (long long)H * W;
-  const long long p = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= HW) return;
-  const T dj = dep_j[p], di = dep_i[p];
+__device__ __forceinline__ T ld(const T* p) { return __ldg(p); }
+
+// MS = 1 or 2: the stack height, specialised; MS = 0: any M (a loop).
+template <typename T, int MS>
+__global__ void __launch_bounds__(kBX * kBY)
+advect_bilinear_kernel(const T* __restrict__ f, const T* __restrict__ u,
+                       const T* __restrict__ v, const T* __restrict__ cosl,
+                       T* __restrict__ out, T* __restrict__ dep_out, int M, int H, int W,
+                       T dt, T a, T inv_a, T inv_dlat, T inv_dlon) {
+  const int i = blockIdx.x * kBX + threadIdx.x;
+  const int j = blockIdx.y * kBY + threadIdx.y;
+  if (i >= W || j >= H) return;
+  const int HW = H * W;
+  const int p = j * W + i;
+  const T dlam = (ld(u + p) * dt) / (a * ld(cosl + p));
+  const T dphi = (ld(v + p) * dt) * inv_a;
+  const T dx = dlam * inv_dlon;
+  const T dy = dphi * inv_dlat;
+  const T dj = T(j) - dy, di = T(i) - dx;
+  if (dep_out != nullptr) {
+    dep_out[p] = dj;
+    dep_out[HW + p] = di;
+  }
   const T j0f = floor(dj), i0f = floor(di);
   const T fj = dj - j0f, fi = di - i0f;
-  const long long j0 = floor_mod((long long)j0f, H), i0 = floor_mod((long long)i0f, W);
-  const long long j1 = (j0 + 1) % H, i1 = (i0 + 1) % W;
+  const int j0 = wrap_index(j0f, H), i0 = wrap_index(i0f, W);
+  const int j1 = (j0 + 1 == H) ? 0 : j0 + 1;
+  const int i1 = (i0 + 1 == W) ? 0 : i0 + 1;
   const T w00 = (T(1) - fj) * (T(1) - fi);
   const T w01 = (T(1) - fj) * fi;
   const T w10 = fj * (T(1) - fi);
   const T w11 = fj * fi;
-  const long long c00 = j0 * W + i0, c01 = j0 * W + i1;
-  const long long c10 = j1 * W + i0, c11 = j1 * W + i1;
-  for (int m = 0; m < M; ++m) {
-    const T* fm = f + m * HW;
-    out[m * HW + p] = fm[c00] * w00 + fm[c01] * w01 + fm[c10] * w10 + fm[c11] * w11;
+  const int c00 = j0 * W + i0, c01 = j0 * W + i1;
+  const int c10 = j1 * W + i0, c11 = j1 * W + i1;
+  if (MS == 1) {
+    const T a00 = ld(f + c00), a01 = ld(f + c01), a10 = ld(f + c10), a11 = ld(f + c11);
+    out[p] = a00 * w00 + a01 * w01 + a10 * w10 + a11 * w11;
+  } else if (MS == 2) {
+    const T* g = f + HW;
+    const T a00 = ld(f + c00), a01 = ld(f + c01), a10 = ld(f + c10), a11 = ld(f + c11);
+    const T b00 = ld(g + c00), b01 = ld(g + c01), b10 = ld(g + c10), b11 = ld(g + c11);
+    out[p] = a00 * w00 + a01 * w01 + a10 * w10 + a11 * w11;
+    out[HW + p] = b00 * w00 + b01 * w01 + b10 * w10 + b11 * w11;
+  } else {
+#pragma unroll 2
+    for (int m = 0; m < M; ++m) {
+      const T* fm = f + (size_t)m * HW;
+      out[(size_t)m * HW + p] = ld(fm + c00) * w00 + ld(fm + c01) * w01 +
+                                ld(fm + c10) * w10 + ld(fm + c11) * w11;
+    }
   }
 }
 
 template <typename T>
-int launch(const void* f, const void* dep_j, const void* dep_i, void* out,
-           int M, int H, int W, void* stream) {
-  const int threads = 256;
-  const long long HW = (long long)H * W;
-  const unsigned int blocks = (unsigned int)((HW + threads - 1) / threads);
-  advect_bilinear_kernel<T><<<blocks, threads, 0, (cudaStream_t)stream>>>(
-      (const T*)f, (const T*)dep_j, (const T*)dep_i, (T*)out, M, H, W);
+int launch(const void* f, const void* u, const void* v, const void* cosl, void* out,
+           void* dep_out, int M, int H, int W, double dt, double a, double dlat,
+           double dlon, void* stream) {
+  // the scalars in T, and the reciprocals PyTorch multiplies by, rounded in T
+  const T dt_t = (T)dt, a_t = (T)a, dlat_t = (T)dlat, dlon_t = (T)dlon;
+  const T inv_a = T(1) / a_t, inv_dlat = T(1) / dlat_t, inv_dlon = T(1) / dlon_t;
+  const dim3 block(kBX, kBY);
+  const dim3 grid((W + kBX - 1) / kBX, (H + kBY - 1) / kBY);
+  cudaStream_t s = (cudaStream_t)stream;
+  const T* ff = (const T*)f;
+  const T *uu = (const T*)u, *vv = (const T*)v, *cc = (const T*)cosl;
+  T *oo = (T*)out, *dd = (T*)dep_out;
+  if (M == 1)
+    advect_bilinear_kernel<T, 1><<<grid, block, 0, s>>>(ff, uu, vv, cc, oo, dd, M, H, W,
+                                                         dt_t, a_t, inv_a, inv_dlat, inv_dlon);
+  else if (M == 2)
+    advect_bilinear_kernel<T, 2><<<grid, block, 0, s>>>(ff, uu, vv, cc, oo, dd, M, H, W,
+                                                         dt_t, a_t, inv_a, inv_dlat, inv_dlon);
+  else
+    advect_bilinear_kernel<T, 0><<<grid, block, 0, s>>>(ff, uu, vv, cc, oo, dd, M, H, W,
+                                                         dt_t, a_t, inv_a, inv_dlat, inv_dlon);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-extern "C" int qd_advect_bilinear_f32(const void* f, const void* dep_j, const void* dep_i,
-                                      void* out, int M, int H, int W, void* stream) {
-  return launch<float>(f, dep_j, dep_i, out, M, H, W, stream);
+extern "C" int qd_advect_bilinear_f32(const void* f, const void* u, const void* v,
+                                      const void* cosl, void* out, void* dep_out, int M,
+                                      int H, int W, double dt, double a, double dlat,
+                                      double dlon, void* stream) {
+  return launch<float>(f, u, v, cosl, out, dep_out, M, H, W, dt, a, dlat, dlon, stream);
 }
 
-extern "C" int qd_advect_bilinear_f64(const void* f, const void* dep_j, const void* dep_i,
-                                      void* out, int M, int H, int W, void* stream) {
-  return launch<double>(f, dep_j, dep_i, out, M, H, W, stream);
+extern "C" int qd_advect_bilinear_f64(const void* f, const void* u, const void* v,
+                                      const void* cosl, void* out, void* dep_out, int M,
+                                      int H, int W, double dt, double a, double dlat,
+                                      double dlon, void* stream) {
+  return launch<double>(f, u, v, cosl, out, dep_out, M, H, W, dt, a, dlat, dlon, stream);
 }

@@ -30,8 +30,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P, _I, _LL, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_double
 # C signatures of the launchers; each returns cudaGetLastError() as an int
 SIGNATURES = {
-    "qd_median_pos": [_P, _LL, _D, _P, _P],
-    "qd_advect_bilinear": [_P, _P, _P, _P, _I, _I, _I, _P],
+    "qd_median_pos": [_P, _LL, _D, _P, _P, _P],
+    "qd_advect_bilinear": [_P] * 6 + [_I] * 3 + [_D] * 4 + [_P],
     "qd_hyper4": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _D, _D, _D, _D, _P],
     "qd_ocean_substeps": [_P] * 12 + [_I] * 6 + [_D] * 9 + [_I, _D, _D, _I, _D, _P],
 }

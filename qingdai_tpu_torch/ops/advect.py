@@ -6,7 +6,8 @@ mod, as ``jnp.mod``). The JAX package's ``AdvectPlan`` machinery (roll window,
 exact polar rows, polar band pass, band merge, polar matmul) only works around
 the TPU's gather cost: one gather over every row computes the same
 interpolation, so the port has none of it. ``advect_semilag_multi`` runs
-kernel K2 (``kernels/advect_bilinear.py``) on a CUDA tensor and the plain
+kernel K2 (``kernels/advect_bilinear.py``), which computes the departure
+points itself, on a CUDA tensor, and the plain ``departure_indices`` and
 ``bilinear_wrap_gather_multi`` on a CPU tensor.
 """
 
@@ -59,10 +60,10 @@ def advect_semilag_multi(fields: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
                          dt: float, a: float, dlat: float, dlon: float,
                          coslat: torch.Tensor) -> torch.Tensor:
     """Advect stacked fields [M, H, W] by the same wind over dt."""
-    dep_j, dep_i = departure_indices(fields.shape[1:], u, v, dt, a, dlat, dlon,
-                                     coslat, fields.dtype)
     if use_kernel(fields):
         from ..kernels.advect_bilinear import advect_bilinear_cuda
-        return advect_bilinear_cuda(fields, dep_j, dep_i)
+        return advect_bilinear_cuda(fields, u, v, dt, a, dlat, dlon, coslat)
+    dep_j, dep_i = departure_indices(fields.shape[1:], u, v, dt, a, dlat, dlon,
+                                     coslat, fields.dtype)
     return bilinear_wrap_gather_multi(fields, dep_j, dep_i)
 

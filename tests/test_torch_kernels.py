@@ -1,5 +1,6 @@
 """The four CUDA kernels against their plain PyTorch versions on the card.
-K4's operands are those ``chip_smoke.py`` holds it to.
+K1's fields, K2's cases and K4's operands are those ``chip_smoke.py`` holds
+them to.
 
 Marked ``gpu``: without a CUDA device every test skips. The file imports no
 JAX, so on a machine with a card and without JAX it runs alone with
@@ -12,12 +13,12 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import k4_operands
+from chip_smoke import k1_cases, k2_check, k4_operands
 from qingdai_tpu_torch import constants as const
 from qingdai_tpu_torch import kernels, ocean
 from qingdai_tpu_torch.grid import make_grid
 from qingdai_tpu_torch.kernels import advect_bilinear, hyper4, median_pos
-from qingdai_tpu_torch.ops import advect, reductions, stencil
+from qingdai_tpu_torch.ops import reductions, stencil
 
 pytestmark = pytest.mark.gpu
 
@@ -37,20 +38,14 @@ def _on(dev, x, dtype):
     return torch.as_tensor(np.asarray(x)).to(device=dev, dtype=dtype)
 
 
+K1_CASES = ["random", "precip", "odd", "even", "ties", "fallback", "neg_zero", "denormal",
+            "one_pos", "two_pos", "inf_nan", "inf_median", "one_binade", "all_pos"]
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("case", ["random", "precip", "odd", "ties", "fallback"])
+@pytest.mark.parametrize("case", K1_CASES)
 def test_median_kernel_bit_equal(dev, dtype, case):
-    r = np.random.default_rng(1)
-    x = r.standard_normal((H, W))
-    if case == "precip":
-        x = np.where(r.random((H, W)) < 0.6, 0.0, np.abs(x) * 1e-5)
-    elif case == "odd":
-        x = np.abs(x) + 0.1
-        x[0, 0] = 0.0
-    elif case == "ties":
-        x = r.integers(-3, 5, (H, W)).astype(np.float64)
-    elif case == "fallback":
-        x = -np.abs(x)
+    x = k1_cases(np.random.default_rng(1), dtype)[case]
     xt = _on(dev, x, dtype)
     before = kernels.launch_counts()["median_pos"]
     got = reductions.masked_median_of_positive(xt, 1e-6)
@@ -61,21 +56,39 @@ def test_median_kernel_bit_equal(dev, dtype, case):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("M", [1, 2])
-def test_advect_kernel_matches_plain(dev, dtype, M):
-    r = np.random.default_rng(2)
-    g = make_grid(H, W, device=dev, dtype=dtype)
-    F = _on(dev, 280.0 + 20.0 * r.standard_normal((M, H, W)), dtype)
-    u = _on(dev, np.clip(120.0 * r.standard_normal((H, W)), -200, 200), dtype)
-    v = _on(dev, np.clip(120.0 * r.standard_normal((H, W)), -200, 200), dtype)
-    dj, di = advect.departure_indices((H, W), u, v, 300.0, A, g.dlat_rad, g.dlon_rad,
-                                      g.coslat_cap_tiny, dtype)
-    assert float(dj.min()) < 0.0                      # wraps across the south pole
-    got = advect.advect_semilag_multi(F, u, v, 300.0, A, g.dlat_rad, g.dlon_rad,
-                                      g.coslat_cap_tiny)
-    ref = advect.bilinear_wrap_gather_multi(F, dj, di)
+def test_median_kernel_unstaged_field(dev, dtype):
+    """721×1440: an eighth of the field exceeds K1's shared-memory stage, so
+    every pass re-reads it from device memory."""
+    r = np.random.default_rng(4)
+    x = np.where(r.random((721, 1440)) < 0.6, 0.0, np.abs(r.standard_normal((721, 1440))) * 1e-5)
+    xt = _on(dev, x, dtype)
+    got = median_pos.median_pos_cuda(xt, 1e-6)
+    assert torch.equal(got, reductions.masked_median_of_positive_ref(xt, 1e-6))
+
+
+def test_median_kernel_trace(dev):
+    """A traced launch stamps every stage boundary in order."""
+    r = np.random.default_rng(5)
+    xt = _on(dev, np.where(r.random((H, W)) < 0.6, 0.0, np.abs(r.standard_normal((H, W)))),
+             torch.float32)
+    trace = torch.zeros((2, median_pos.trace_slots(torch.float32)), dtype=torch.int64,
+                        device=dev)
+    got = median_pos.median_pos_cuda(xt, 1e-6, trace=trace)
+    assert torch.equal(got, reductions.masked_median_of_positive_ref(xt, 1e-6))
+    t = trace.cpu().numpy()
+    assert (t > 0).all() and (np.diff(t, axis=1) >= 0).all()
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("M,case", [(1, "winds"), (2, "winds"), (11, "winds"), (2, "poles"),
+                                    (1, "far")])
+def test_advect_kernel_matches_plain(dev, dtype, M, case):
+    """K2's departure points bit-equal to departure_indices and the stack
+    within f32 1e-6 / f64 1e-12 of max|F| of the plain version (k2_check)."""
     tol = 1e-6 if dtype == torch.float32 else 1e-12
-    torch.testing.assert_close(got, ref, rtol=tol, atol=tol * float(F.abs().max()))
+    _, dj = k2_check(dev, dtype, M, case, np.random.default_rng(2), tol)
+    if case == "winds":
+        assert float(dj.min()) < 0.0                  # wraps across the south pole
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -100,7 +113,10 @@ def test_wrappers_refuse_bad_input(dev):
     with pytest.raises(TypeError):
         median_pos.median_pos_cuda(x.half())
     with pytest.raises(ValueError):
-        advect_bilinear.advect_bilinear_cuda(x[None], x.t().contiguous(), x)
+        advect_bilinear.advect_bilinear_cuda(x[None], x[:, :-1].contiguous(), x, 300.0, A,
+                                             0.1, 0.1, x)
+    with pytest.raises(TypeError):
+        advect_bilinear.advect_bilinear_cuda(x[None], x, x, torch.tensor(300.0), A, 0.1, 0.1, x)
     with pytest.raises(ValueError):
         hyper4.hyperdiffuse_cuda(x[None], x[None][:, :, ::2], 300.0, 1, 0.1, 0.1,
                                          x, 1.0)

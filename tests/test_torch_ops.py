@@ -21,6 +21,7 @@ from qingdai_tpu.ops import smooth as jsmooth
 from qingdai_tpu.ops import stencil as jst
 from qingdai_tpu.ops.pallas_advect import advect_windowed_pallas
 from qingdai_tpu.ops.pallas_stencil import hyperdiffuse_pallas
+from chip_smoke import k1_cases
 from qingdai_tpu_torch import grid as tgrid
 from qingdai_tpu_torch.ops import advect as tadv
 from qingdai_tpu_torch.ops import reductions as tred
@@ -273,3 +274,58 @@ def test_dispatch_by_device():
         use_kernel(torch.zeros(1, device="meta"))
     with pytest.raises(ValueError):
         tred.masked_median_of_positive(torch.zeros((3, 3), device="meta"))
+
+
+# ------------------------------------------- K1 and K2 edge cases (CPU)
+
+K1_EDGES = ["neg_zero", "denormal", "one_pos", "two_pos", "inf_nan", "inf_median",
+            "one_binade", "all_pos"]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("case", K1_EDGES)
+def test_median_ref_edge_cases_match_jax(case, dtype):
+    """The plain median against np.median and JAX's sort on the fields that
+    chip_smoke.py holds K1 to. XLA on the CPU flushes denormals to zero, so
+    JAX counts a positive denormal as not positive; PyTorch does not (nor
+    does K1 on the card, nor np.median): on the denormal case the JAX sort
+    is held to the median of the normal positives."""
+    npdt = np.dtype(dtype)
+    x = k1_cases(np.random.default_rng(11), getattr(torch, dtype), (H, W))[case].astype(npdt)
+    got = tred.masked_median_of_positive_ref(torch.as_tensor(x), 1e-6)
+    assert got.dtype == getattr(torch, dtype)
+
+    def median(vals):
+        return float(np.median(vals)) if vals.size else float(npdt.type(1e-6))
+
+    assert float(got) == median(x[x > 0])
+    sort = float(jred.masked_median_of_positive_sort(jnp.asarray(x), fallback=1e-6))
+    if case == "denormal":
+        assert (x[x > 0] < np.finfo(npdt).tiny).any()
+        assert sort == median(x[x >= np.finfo(npdt).tiny])
+    else:
+        assert sort == float(got)
+
+
+@pytest.mark.parametrize("M", [1, 2])
+def test_advect_semilag_far_pole_departures_match_jax(M, grids):
+    """Pole rows at 150–200 m/s over dt = 900 s: under the 1e-6 cos cap the
+    departures lie beyond 2^16 cells upwind. The port's CPU path against the
+    JAX windowed plan with its exact polar rows."""
+    jg, tg = grids
+    rng = np.random.default_rng(13)
+    dt = 900.0
+    F = 280.0 + 20.0 * rng.standard_normal((M, H, W))
+    u, v = _winds(rng, (H, W), 120.0)
+    u[[0, -1]] = rng.choice([-1.0, 1.0], (2, W)) * rng.uniform(150.0, 200.0, (2, W))
+    plan = jadv.make_advect_plan(H, jg.dlat_rad, jg.dlon_rad, dt, A,
+                                 np.asarray(jg.coslat_cap_tiny)[:, 0], vmax=200.0)
+    ref = jadv.advect_semilag_multi(jnp.asarray(F), jnp.asarray(u), jnp.asarray(v), dt, A,
+                                    jg.dlat_rad, jg.dlon_rad, jg.coslat_cap_tiny, plan=plan)
+    _, di = tadv.departure_indices((H, W), t64(u), t64(v), dt, A, tg.dlat_rad, tg.dlon_rad,
+                                   tg.coslat_cap_tiny, torch.float64)
+    reach = (di - torch.arange(W, dtype=torch.float64)).abs()
+    assert float(reach[[0, -1]].min()) > 2 ** 16
+    got = tadv.advect_semilag_multi(t64(F), t64(u), t64(v), dt, A, tg.dlat_rad,
+                                    tg.dlon_rad, tg.coslat_cap_tiny)
+    close(got, ref, 1e-12)
