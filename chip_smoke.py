@@ -17,8 +17,11 @@ Phases, each of which raises on failure (exit code non-zero):
      time per call (the card's kernel times under torch.profiler over 20
      calls), which the JSON line reports, and CUDA-event time of one call
      (median of 50), which includes the host's launch while the card waits;
-     K1's and K2's times before their redesign beside; then K1's stages
-     from its own stamps (``k1_anatomy``);
+     each kernel's time before its redesign beside, and its device
+     launches a call; then K1's and K4's stages from their own stamps
+     (``k1_anatomy``, ``k4_anatomy``), and one call of K3 and of K4
+     captured in a CUDA graph, whose replay and a second eager call must
+     equal the first eager call bit for bit (``graph_replay``);
   4. the main path, the default planet with river routing off (181×360,
      float32, ecology, the individual pool and phytoplankton on), built with
      no device argument: one planetary day of 240 steps, then a second,
@@ -61,10 +64,12 @@ KERNELS = [
 # float32 operations/s outside the tensor cores
 PEAK_BYTES = 3.35e12
 PEAK_F32 = 67e12
-# device ms per call of K1 and K2 before their redesign (one-block radix
-# select; departure points from separate PyTorch launches), this script's
-# phase 3 on an NVIDIA H100 80GB HBM3 at 700 W
-BEFORE_REDESIGN = {"median_pos": 0.09444, "advect_bilinear": 0.00264}
+# device ms per call of each kernel before its redesign (K1 one-block radix
+# select; K2 departure points from separate PyTorch launches; K3 four
+# global-memory launches a substep; K4 one thread per cell with nine grid
+# barriers a substep), this script's phase 3 on an NVIDIA H100 80GB HBM3 at 700 W
+BEFORE_REDESIGN = {"median_pos": 0.09444, "advect_bilinear": 0.00264, "hyper4": 0.01442,
+                   "ocean_substeps": 0.03322}
 BEFORE_REDESIGN_CARD = "NVIDIA H100 80GB HBM3, 700.00 W"
 
 
@@ -89,21 +94,57 @@ def time_ms(fn, reps=50):
     return statistics.median(times)
 
 
-def device_ms(fn, reps=20):
-    """Device time of one call: the card's kernel (and memset/copy) times
-    under torch.profiler over ``reps`` calls, per call."""
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
+# torch.profiler loses the device events of kernels launched within the
+# first few milliseconds after it starts: a profile may come back short or
+# empty (PERF.md §7, scripts/profiler_check.py). So a profile idles this
+# long before its first call. A profile that still holds no device event is
+# printed, with what it did hold, and taken again; a function with
+# PROFILE_TRIES empty profiles in a row raises.
+PROFILE_WAIT_S = 0.05
+PROFILE_TRIES = 3
+# profiles taken, and (what, host events, launch calls) of each empty one
+PROFILE_LOG = {"taken": 0, "empty": []}
+
+
+def take_profile(fn, reps=20, pads=(PROFILE_WAIT_S, 0.0)):
+    """One torch.profiler profile of ``reps`` calls of ``fn``, with ``pads``
+    seconds of idle time inside it before the first call and after the card
+    has finished the last: (device events, host events)."""
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        time.sleep(pads[0])
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    us = sum(e.time_range.elapsed_us() for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA)
-    if us <= 0.0:
-        raise AssertionError("the profiler saw no device time")
-    return us / reps / 1e3
+        time.sleep(pads[1])
+    PROFILE_LOG["taken"] += 1
+    events = prof.events()
+    return ([e for e in events if e.device_type == torch.autograd.DeviceType.CUDA],
+            [e for e in events if e.device_type == torch.autograd.DeviceType.CPU])
+
+
+def device_profile(fn, reps=20, what="a function"):
+    """(device ms, device launches) of one call: the card's kernel (and
+    memset/copy) times and count under torch.profiler over ``reps`` calls,
+    per call."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    for attempt in range(1, PROFILE_TRIES + 1):
+        events, host = take_profile(fn, reps)
+        us = sum(e.time_range.elapsed_us() for e in events)
+        if us > 0.0:
+            return us / reps / 1e3, len(events) / reps
+        launch_calls = sum("Launch" in e.name for e in host)
+        PROFILE_LOG["empty"].append((what, len(host), launch_calls))
+        print(f"torch.profiler: no device event in profile {attempt} of {PROFILE_TRIES} of "
+              f"{what} ({len(host)} host events, {launch_calls} of them launch calls)",
+              flush=True)
+    raise AssertionError(f"the profiler saw no device time in {PROFILE_TRIES} profiles of {what}")
+
+
+def device_ms(fn, reps=20, what="a function"):
+    """Device time of one call (``device_profile``)."""
+    return device_profile(fn, reps, what)[0]
 
 
 def copy_rate(dev) -> float:
@@ -119,21 +160,20 @@ def on(dev, x, dtype):
     return torch.as_tensor(np.asarray(x)).to(device=dev, dtype=dtype)
 
 
-def k4_operands(dev, dtype, n_tracers, n_sub, k4_nsub, K_h, seed=4):
-    """K4's operands at 181×360 from a seeded state: 30% land, 15% ice, a
-    fifth of the ocean with currents near the 3 m/s cap (some above it, so
-    the mean4 repair runs)."""
+def k4_operands(dev, dtype, n_tracers, n_sub, k4_nsub, K_h, seed=4, shape=(H, W)):
+    """K4's operands on a grid of ``shape`` (181×360 unless given) from a
+    seeded state: 30% land, 15% ice, a fifth of the ocean with currents near
+    the 3 m/s cap (some above it, so the mean4 repair runs)."""
     from qingdai_tpu_torch import ocean
     from qingdai_tpu_torch.config import OceanConfig
     from qingdai_tpu_torch.grid import make_grid
     from qingdai_tpu_torch.state import OceanState
 
     r = np.random.default_rng(seed)
-    shape = (H, W)
     speed = np.where(r.random(shape) < 0.2, r.uniform(2.6, 3.4, shape),
                      np.abs(r.normal(0.0, 0.6, shape)))
     theta = r.uniform(0.0, 2.0 * np.pi, shape)
-    g = make_grid(H, W, device=dev, dtype=dtype)
+    g = make_grid(*shape, device=dev, dtype=dtype)
     ocn = OceanState(uo=on(dev, speed * np.cos(theta), dtype),
                      vo=on(dev, speed * np.sin(theta), dtype),
                      eta=on(dev, r.normal(0.0, 0.3, shape), dtype),
@@ -394,7 +434,10 @@ def phase3_kernels(dev, label, rate):
     library = {"advect_bilinear": grid_sample_call(F2, dj, di)}
     for name, (kern, plain) in pairs.items():
         # plain, kernel, kernel, plain: compare within one call, in turns
-        p1, k1, k2, p2 = device_ms(plain), device_ms(kern), device_ms(kern), device_ms(plain)
+        p1, (k1, n_dev), k2, p2 = (device_ms(plain, what=f"{name}'s plain version"),
+                                   device_profile(kern, what=f"kernel {name}"),
+                                   device_ms(kern, what=f"kernel {name}"),
+                                   device_ms(plain, what=f"{name}'s plain version"))
         e1, f1, f2, e2 = time_ms(plain), time_ms(kern), time_ms(kern), time_ms(plain)
         nbytes, nops = work[name]
         t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, nops / PEAK_F32 * 1e3
@@ -404,19 +447,70 @@ def phase3_kernels(dev, label, rate):
                          bound_copy_ms=nbytes / rate * 1e3, library_ms=None)
         lib = ""
         if name in library:
-            rec[name]["library_ms"] = device_ms(library[name])
+            rec[name]["library_ms"] = device_ms(library[name],
+                                                    what=f"{name}'s PyTorch call")
             lib = (f", one PyTorch call {rec[name]['library_ms']:.5f} ms "
                    f"(events {time_ms(library[name]):.4f})")
         if name in BEFORE_REDESIGN:
             lib += (f", before the redesign {BEFORE_REDESIGN[name]:.5f} ms "
                     f"[{BEFORE_REDESIGN_CARD}]")
         print(f"time {name} (main-path shape, float32), device ms per call: kernel "
-              f"{k1:.5f}/{k2:.5f}, plain {p1:.5f}/{p2:.5f}{lib}; events: kernel "
+              f"{k1:.5f}/{k2:.5f} ({n_dev:g} device launches a call), plain "
+              f"{p1:.5f}/{p2:.5f}{lib}; events: kernel "
               f"{f1:.4f}/{f2:.4f}, plain {e1:.4f}/{e2:.4f}; bound {rec[name]['bound_ms']:.5f} ms "
               f"({rec[name]['bound_by']}: {nbytes} B, {nops} flop), "
               f"{rec[name]['bound_copy_ms']:.5f} ms at the measured copy rate [{label}]")
     k1_anatomy(x, rec["median_pos"]["ms"], label)
+    k4_anatomy(mom, st, forc, geo, params, rec["ocean_substeps"]["ms"], label)
+    graph_replay(pairs["hyper4"][0], pairs["ocean_substeps"][0])
+    print(f"torch.profiler: {len(PROFILE_LOG['empty'])} of {PROFILE_LOG['taken']} profiles held "
+          f"no device event and were taken again: {PROFILE_LOG['empty']}")
     return rec
+
+
+def k4_anatomy(mom, st, forc, geo, params, kernel_ms, label, reps=50):
+    """Where K4's time goes: the middle tile's block over ``reps`` traced
+    launches, per stage (SM cycles at the clock measured over the tile
+    pass), and the grid-wide dependency and finish by the global timer (the
+    finish may run on another SM). One grid-wide dependency a substep."""
+    from qingdai_tpu_torch.kernels.ocean_substeps import (TRACE_SLOTS, TRACE_STAGES,
+                                                          ocean_substeps_cuda)
+
+    traces = torch.zeros((reps, 2, TRACE_SLOTS), dtype=torch.int64, device=mom.device)
+    for k in range(reps):
+        ocean_substeps_cuda(mom, st, forc, geo, **params, trace=traces[k])
+    t = traces.double().cpu().numpy()
+    d_ns = np.diff(t[:, 0], axis=1).mean(axis=0)
+    d_cyc = np.diff(t[:, 1], axis=1).mean(axis=0)
+    tile = len(TRACE_STAGES) - 2                   # the tile pass's stages
+    ghz = d_cyc[:tile].sum() / d_ns[:tile].sum()
+    parts = [f"{nm} {cyc / ghz / 1e3:.3f} us ({cyc:.0f} cycles)"
+             for nm, cyc in zip(TRACE_STAGES[:tile], d_cyc[:tile])]
+    parts += [f"{nm} {ns / 1e3:.3f} us (global timer)"
+              for nm, ns in zip(TRACE_STAGES[tile:], d_ns[tile:])]
+    inside = float(d_ns.sum()) / 1e3
+    print(f"K4 anatomy (float32, {tuple(st.shape)}, mean of {reps} traced launches, one "
+          f"grid-wide dependency a substep): {', '.join(parts)}; stamped span {inside:.3f} us "
+          f"of {kernel_ms * 1e3:.3f} us device time; SM clock {ghz:.3f} GHz [{label}]")
+
+
+def graph_replay(*calls):
+    """Capture one call of each kernel in a CUDA graph, replay it, and require
+    the replay to equal an eager call bit for bit."""
+    for call in calls:
+        eager, again = call(), call()
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(eager, again)):
+            raise AssertionError("two eager calls differ")
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            captured = call()
+        graph.replay()
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(eager, captured)):
+            raise AssertionError("a CUDA graph replay differs from the eager call")
+    print(f"CUDA graph: {len(calls)} kernels (K3, K4) captured; replays bit-equal to eager "
+          "calls, two eager calls bit-equal")
 
 
 def grid_sample_call(F, dep_j, dep_i):

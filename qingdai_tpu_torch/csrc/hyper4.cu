@@ -3,22 +3,23 @@
 //
 // Replaces the TPU kernel `hyperdiffuse_pallas` / `_hyper4_kernel`
 // (qingdai_tpu/ops/pallas_stencil.py), which keeps the whole chain resident
-// in VMEM. The spherical Laplacian is that of `_lap_batched` there; its
+// in VMEM. The spherical Laplacian is that of `_lap_batched` there; its tiled
 // device code (stencil.cuh) is shared with kernel K4 (ocean_substeps.cu).
 //
-// Each Laplacian is two launches over every (m, j, i):
-//   grad_cos:   G = cos * dX/dphi
-//   lap_finish: L = (dG/dphi / cos + d2X/dlambda2 / cos^2) / a^2, and on the
-//               second Laplacian of a substep F_out = F - k4 * L * dt/n.
-// G is stored whole before its latitude derivative is taken, so the
-// one-sided formula at rows 0 and H-1 is applied to G itself, as
-// np.gradient does, and not to F. The update reads F only at its own cell,
-// so later substeps update the output in place.
+// One launch per substep. A block owns a 32 x 32 tile of one plane (grid z
+// = the plane), loads it and the cos map with a 4-row, 2-column halo into
+// shared memory (rows clip at 0 and H-1, columns wrap), computes G, L, G
+// and the update there (stencil.cuh: tile_del4), and writes only its own
+// cells; its 36 x 10 threads each take one column of the 40 x 36 cells. At
+// 5 x 181 x 360 that is 360 blocks, all resident at once on 132 SMs. A
+// substep reads the last one's every cell, so substeps are separate launches
+// ping-ponging between `out` and `tmp`; the main path has one. 32-bit
+// indices: the wrapper refuses stacks of 2^31 cells or more.
 //
-// What bounds it on the H100: device-memory bytes and launch latency. Each
-// substep makes four passes over the [M,H,W] stack (at 181x360 with M=5,
-// 2.6 MB a pass in float, which L2 holds); the arithmetic is a few dozen
-// flops per cell.
+// What bounds it on the H100: device-memory bytes (F and k4 read, out
+// written: 12 B a cell in float) and, at the main path's 5 x 181 x 360
+// (1.3 MB), the latency of one launch whose blocks each load a tile, pass
+// four block barriers and store. The halo reads 1440 cells for 1024 owned.
 
 #include <cuda_runtime.h>
 
@@ -26,73 +27,73 @@
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kTH = 32, kTW = 32;
+constexpr int kHaloR = 4, kHaloC = 2;  // one del^4 substep; held by tests/test_torch_halo.py
+constexpr int kNR = kTH + 2 * kHaloR, kNC = kTW + 2 * kHaloC, kPlane = kNR * kNC;
+constexpr int kBY = 10;  // block (kNC, kBY): a thread takes one column and every kBY-th row
 
 template <typename T>
-__global__ void grad_cos_kernel(const T* __restrict__ X, const T* __restrict__ cosm,
-                                T* __restrict__ G, int M, int H, int W,
-                                T dlat, T two_dlat) {
-  const long long HW = (long long)H * W;
-  const long long p = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= M * HW) return;
-  const long long m = p / HW, r = p - m * HW, j = r / W, i = r - j * W;
-  G[p] = cosm[r] * qd::grad_lat(X + m * HW, j, i, H, W, dlat, two_dlat);
+__global__ void __launch_bounds__(kNC * kBY)
+hyper4_tile_kernel(const T* __restrict__ F, const T* __restrict__ k4, const T* __restrict__ cosm,
+                   T* __restrict__ out, int H, int W, qd::Inv<T> inv, T sub_dt) {
+  __shared__ T sX[kPlane], sG[kPlane], sL[kPlane], sC[kPlane];
+  const int plane = blockIdx.z * H * W;
+  const int j0 = blockIdx.y * kTH, i0 = blockIdx.x * kTW;
+  const int oh = min(kTH, H - j0), ow = min(kTW, W - i0);
+  const int r0 = max(0, j0 - kHaloR), nr = min(H, j0 + oh + kHaloR) - r0, nc = ow + 2 * kHaloC;
+  const qd::Tile t{H, r0, nr, nc};
+  const qd::Rect own{j0 - r0, j0 - r0 + oh, kHaloC, kHaloC + ow};
+  // this thread's global column
+  int gi = i0 - kHaloC + (int)threadIdx.x;
+  gi = gi < 0 ? gi + W : (gi >= W ? gi - W : gi);
+
+  qd::for_rect(qd::Rect{0, nr, 0, nc}, [&](int lr, int lc) {
+    const int g = (r0 + lr) * W + gi, p = lr * nc + lc;
+    sX[p] = F[plane + g];
+    sC[p] = cosm[g];
+  });
+  __syncthreads();
+  qd::tile_del4<1>(sX, sG, sL, kPlane, sC, t, own,
+                   [&](int, int lr) { return k4[plane + (r0 + lr) * W + gi]; }, sub_dt, inv);
+  qd::for_rect(own, [&](int lr, int lc) { out[plane + (r0 + lr) * W + gi] = sX[lr * nc + lc]; });
 }
 
 template <typename T>
-__global__ void lap_finish_kernel(const T* __restrict__ X, const T* __restrict__ G,
-                                  const T* __restrict__ cosm, const T* __restrict__ k4,
-                                  const T* Fsrc, T* out, int M, int H, int W,
-                                  T dlat, T two_dlat, T dlon2, T a2, T sub_dt,
-                                  int update) {
-  const long long HW = (long long)H * W;
-  const long long p = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= M * HW) return;
-  const long long m = p / HW, r = p - m * HW, j = r / W, i = r - j * W;
-  const T L = qd::lap_value(X + m * HW, G + m * HW, cosm[r], j, i, H, W, dlat, two_dlat,
-                            dlon2, a2);
-  out[p] = update ? Fsrc[p] - k4[p] * L * sub_dt : L;
-}
-
-template <typename T>
-int run(const void* F, const void* k4, const void* cosm, void* out, void* G, void* L,
-        int M, int H, int W, int n_sub, double dlat, double dlon, double a,
-        double sub_dt, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  const long long total = (long long)M * H * W;
-  const unsigned int blocks = (unsigned int)((total + kThreads - 1) / kThreads);
-  const T tdlat = T(dlat), ttwo = T(2.0 * dlat), tdlon2 = T(dlon * dlon), ta2 = T(a * a);
+int run(const void* F, const void* k4, const void* cosm, void* out, void* tmp, int M, int H,
+        int W, int n_sub, double dlat, double dlon, double a, double sub_dt, void* stream) {
+  if (n_sub > 1 && tmp == nullptr) return (int)cudaErrorInvalidValue;
+  const dim3 grid((W + kTW - 1) / kTW, (H + kTH - 1) / kTH, M);
+  const qd::Inv<T> inv = qd::inverses<T>(dlat, dlon, a);
   const T tsub = T(sub_dt);
-  const T* cur = (const T*)F;
+  const T* src = (const T*)F;
   for (int n = 0; n < n_sub; ++n) {
-    grad_cos_kernel<T><<<blocks, kThreads, 0, s>>>(cur, (const T*)cosm, (T*)G, M, H, W,
-                                                   tdlat, ttwo);
-    lap_finish_kernel<T><<<blocks, kThreads, 0, s>>>(cur, (const T*)G, (const T*)cosm,
-                                                     (const T*)k4, nullptr, (T*)L, M, H, W,
-                                                     tdlat, ttwo, tdlon2, ta2, tsub, 0);
-    grad_cos_kernel<T><<<blocks, kThreads, 0, s>>>((const T*)L, (const T*)cosm, (T*)G,
-                                                   M, H, W, tdlat, ttwo);
-    lap_finish_kernel<T><<<blocks, kThreads, 0, s>>>((const T*)L, (const T*)G,
-                                                     (const T*)cosm, (const T*)k4, cur,
-                                                     (T*)out, M, H, W, tdlat, ttwo, tdlon2,
-                                                     ta2, tsub, 1);
+    // the last substep lands in out
+    T* dst = ((n_sub - 1 - n) % 2 == 0) ? (T*)out : (T*)tmp;
+    hyper4_tile_kernel<T><<<grid, dim3(kNC, kBY), 0, (cudaStream_t)stream>>>(
+        src, (const T*)k4, (const T*)cosm, dst, H, W, inv, tsub);
     const cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
-    cur = (const T*)out;
+    src = dst;
   }
   return 0;
 }
 
 }  // namespace
 
+extern "C" int qd_hyper4_halo(int* rows, int* cols) {
+  *rows = kHaloR;
+  *cols = kHaloC;
+  return 0;
+}
+
 extern "C" int qd_hyper4_f32(const void* F, const void* k4, const void* cosm, void* out,
-                             void* G, void* L, int M, int H, int W, int n_sub, double dlat,
+                             void* tmp, int M, int H, int W, int n_sub, double dlat,
                              double dlon, double a, double sub_dt, void* stream) {
-  return run<float>(F, k4, cosm, out, G, L, M, H, W, n_sub, dlat, dlon, a, sub_dt, stream);
+  return run<float>(F, k4, cosm, out, tmp, M, H, W, n_sub, dlat, dlon, a, sub_dt, stream);
 }
 
 extern "C" int qd_hyper4_f64(const void* F, const void* k4, const void* cosm, void* out,
-                             void* G, void* L, int M, int H, int W, int n_sub, double dlat,
+                             void* tmp, int M, int H, int W, int n_sub, double dlat,
                              double dlon, double a, double sub_dt, void* stream) {
-  return run<double>(F, k4, cosm, out, G, L, M, H, W, n_sub, dlat, dlon, a, sub_dt, stream);
+  return run<double>(F, k4, cosm, out, tmp, M, H, W, n_sub, dlat, dlon, a, sub_dt, stream);
 }

@@ -1,37 +1,120 @@
-// Device code of the spherical Laplacian shared by kernels K3 (hyper4.cu)
-// and K4 (ocean_substeps.cu): the operator of `_lap_batched`
-// (qingdai_tpu/ops/pallas_stencil.py) and of `laplacian_sphere`
-// (qingdai_tpu_torch/ops/stencil.py),
+// Device code of the spherical Laplacian on a tile in shared memory, shared
+// by kernels K3 (hyper4.cu) and K4 (ocean_substeps.cu): the operator of
+// `_lap_batched` (qingdai_tpu/ops/pallas_stencil.py) and of
+// `laplacian_sphere` (qingdai_tpu_torch/ops/stencil.py),
 //   lap(X) = ( d/dphi(cos * dX/dphi) / cos + d2X/dlambda2 / cos^2 ) / a^2,
 // with np.gradient's formula in latitude (central inside, one-sided at rows
 // 0 and H-1), periodic second differences in longitude and the caller's
-// capped cos map. A Laplacian is two passes: G = cos * dX/dphi is stored
-// whole, then lap_value differentiates G itself, so the one-sided rows are
-// applied to G as np.gradient does. The operations follow the plain
-// version's order, so with --fmad=false each rounds the same way.
+// capped cos map. G = cos * dX/dphi is stored whole and then differentiated
+// itself, so the one-sided rows are applied to G as np.gradient does. The
+// operations follow the plain version's order on the card, so with
+// --fmad=false each rounds the same way: PyTorch divides a CUDA tensor by a
+// Python number as a product with the reciprocal taken in T (see
+// advect_bilinear.cu), so the divisions by dlat, 2 dlat, dlon^2 and a^2 are
+// products with `Inv`'s reciprocals, and those by cos and cos^2 divisions.
+//
+// A tile holds rows r0 .. r0+nr-1 of the [H, W] grid (clipped to the grid:
+// latitude does not wrap) and nc consecutive columns (longitude wraps: the
+// caller maps local columns to global ones); each plane has pitch nc. The
+// block is 2-D: thread (x, y) takes local column x and local rows y,
+// y + blockDim.y, ..., so blockDim.x >= nc and no index is divided. One
+// Laplacian reads its input 2 rows and 1 column around each output cell,
+// so a del^4 substep reads 4 rows and 2 columns around it: the halo.
 #pragma once
 
 #include <cuda_runtime.h>
 
 namespace qd {
 
-// dX/dphi at (j, i) of one [H, W] plane
+struct Tile {
+  int H;           // rows of the grid
+  int r0, nr, nc;  // first global row, local rows, local columns (the pitch)
+};
+
+// the reciprocals of the Laplacian's scalars, each taken in T from the
+// scalar rounded to T, as PyTorch does
 template <typename T>
-__device__ __forceinline__ T grad_lat(const T* X, long long j, long long i, int H, int W,
-                                      T dlat, T two_dlat) {
-  if (j == 0) return (X[W + i] - X[i]) / dlat;
-  if (j == H - 1) return (X[j * W + i] - X[(j - 1) * W + i]) / dlat;
-  return (X[(j + 1) * W + i] - X[(j - 1) * W + i]) / two_dlat;
+struct Inv {
+  T dlat, two_dlat, dlon2, a2;
+};
+
+template <typename T>
+__host__ __device__ __forceinline__ Inv<T> inverses(double dlat, double dlon, double a) {
+  return Inv<T>{T(1) / T(dlat), T(1) / T(2.0 * dlat), T(1) / T(dlon * dlon), T(1) / T(a * a)};
 }
 
-// lap(X) at (j, i) of one plane, given G = cos * dX/dphi of that plane
+// local cells [ra, rb) x [ca, cb) of a tile
+struct Rect {
+  int ra, rb, ca, cb;
+};
+
+// `r` grown by dr rows and dc columns, its rows clipped to the tile's (the
+// tile holds every row it needs except beyond rows 0 and H-1)
+__device__ __forceinline__ Rect grow(Rect r, int dr, int dc, int nr) {
+  return Rect{max(0, r.ra - dr), min(nr, r.rb + dr), r.ca - dc, r.cb + dc};
+}
+
+// f(lr, lc) for this thread's cells of `r`
+template <typename F>
+__device__ __forceinline__ void for_rect(Rect r, F f) {
+  const int lc = threadIdx.x;
+  if (lc < r.ca || lc >= r.cb) return;
+  for (int lr = r.ra + (int)threadIdx.y; lr < r.rb; lr += blockDim.y) f(lr, lc);
+}
+
+// dX/dphi at local cell p (global row j) of one plane
 template <typename T>
-__device__ __forceinline__ T lap_value(const T* X, const T* G, T c, long long j, long long i,
-                                       int H, int W, T dlat, T two_dlat, T dlon2, T a2) {
-  const T term_phi = grad_lat(G, j, i, H, W, dlat, two_dlat) / c;
-  const long long ip = (i + 1 == W) ? 0 : i + 1, im = (i == 0) ? W - 1 : i - 1;
-  const T d2 = (X[j * W + ip] - T(2) * X[j * W + i] + X[j * W + im]) / dlon2;
-  return (term_phi + d2 / (c * c)) / a2;
+__device__ __forceinline__ T dphi(const T* X, int p, int j, const Tile& t, const Inv<T>& v) {
+  if (j == 0) return (X[p + t.nc] - X[p]) * v.dlat;
+  if (j == t.H - 1) return (X[p] - X[p - t.nc]) * v.dlat;
+  return (X[p + t.nc] - X[p - t.nc]) * v.two_dlat;
+}
+
+// lap(X) at local cell p (global row j, capped cos c), given G = cos * dX/dphi
+template <typename T>
+__device__ __forceinline__ T lap_at(const T* X, const T* G, T c, int p, int j, const Tile& t,
+                                    const Inv<T>& v) {
+  const T term_phi = dphi(G, p, j, t, v) / c;
+  const T d2 = (X[p + 1] - T(2) * X[p] + X[p - 1]) * v.dlon2;
+  return (term_phi + d2 / (c * c)) * v.a2;
+}
+
+// One del^4 substep of NF planes (plane stride ps) in shared memory,
+//   X <- X - k4(m, lr) * lap(lap(X)) * dt   on the cells of `out`,
+// where X is valid on `out` grown by (4, 2); G and L are NF scratch planes,
+// C the tile's cos plane, k4(m, lr) the coefficient of plane m at local row
+// lr in this thread's column. Ends with a block barrier.
+template <int NF, typename T, typename K4>
+__device__ __forceinline__ void tile_del4(T* X, T* G, T* L, int ps, const T* C, const Tile& t,
+                                          Rect out, K4 k4, T dt, const Inv<T>& v) {
+  for_rect(grow(out, 3, 1, t.nr), [&](int lr, int lc) {
+    const int p = lr * t.nc + lc;
+#pragma unroll
+    for (int m = 0; m < NF; ++m) G[m * ps + p] = C[p] * dphi(X + m * ps, p, t.r0 + lr, t, v);
+  });
+  __syncthreads();
+  for_rect(grow(out, 2, 1, t.nr), [&](int lr, int lc) {
+    const int p = lr * t.nc + lc;
+#pragma unroll
+    for (int m = 0; m < NF; ++m)
+      L[m * ps + p] = lap_at(X + m * ps, G + m * ps, C[p], p, t.r0 + lr, t, v);
+  });
+  __syncthreads();
+  for_rect(grow(out, 1, 0, t.nr), [&](int lr, int lc) {
+    const int p = lr * t.nc + lc;
+#pragma unroll
+    for (int m = 0; m < NF; ++m) G[m * ps + p] = C[p] * dphi(L + m * ps, p, t.r0 + lr, t, v);
+  });
+  __syncthreads();
+  for_rect(out, [&](int lr, int lc) {
+    const int p = lr * t.nc + lc;
+#pragma unroll
+    for (int m = 0; m < NF; ++m) {
+      const T L2 = lap_at(L + m * ps, G + m * ps, C[p], p, t.r0 + lr, t, v);
+      X[m * ps + p] = X[m * ps + p] - k4(m, lr) * L2 * dt;
+    }
+  });
+  __syncthreads();
 }
 
 }  // namespace qd

@@ -32,8 +32,15 @@ _P, _I, _LL, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_dou
 SIGNATURES = {
     "qd_median_pos": [_P, _LL, _D, _P, _P, _P],
     "qd_advect_bilinear": [_P] * 6 + [_I] * 3 + [_D] * 4 + [_P],
-    "qd_hyper4": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _D, _D, _D, _D, _P],
-    "qd_ocean_substeps": [_P] * 12 + [_I] * 6 + [_D] * 9 + [_I, _D, _D, _I, _D, _P],
+    "qd_hyper4": [_P] * 5 + [_I] * 4 + [_D] * 4 + [_P],
+    "qd_ocean_substeps": [_P] * 10 + [_I] * 6 + [_D] * 9 + [_I, _D, _D, _I, _D, _P, _P],
+}
+# C signatures of the shape queries: the halos (rows, cols) and K4's tile count
+QUERY_SIGNATURES = {
+    "qd_hyper4_halo": [_P, _P],
+    "qd_ocean_substeps_halo": [_I, _P, _P],
+    "qd_ocean_substeps_tiles_f32": [_I, _I, _I, _P],
+    "qd_ocean_substeps_tiles_f64": [_I, _I, _I, _P],
 }
 
 
@@ -111,4 +118,7 @@ def load_library() -> ctypes.CDLL:
             fn = getattr(lib, name + suffix)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
+    for name, argtypes in QUERY_SIGNATURES.items():
+        getattr(lib, name).argtypes = argtypes
+        getattr(lib, name).restype = ctypes.c_int
     return lib

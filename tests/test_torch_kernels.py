@@ -17,7 +17,7 @@ from chip_smoke import k1_cases, k2_check, k4_operands
 from qingdai_tpu_torch import constants as const
 from qingdai_tpu_torch import kernels, ocean
 from qingdai_tpu_torch.grid import make_grid
-from qingdai_tpu_torch.kernels import advect_bilinear, hyper4, median_pos
+from qingdai_tpu_torch.kernels import advect_bilinear, hyper4, median_pos, ocean_substeps
 from qingdai_tpu_torch.ops import reductions, stencil
 
 pytestmark = pytest.mark.gpu
@@ -106,6 +106,45 @@ def test_hyper4_kernel_matches_plain(dev, dtype, M, nsub, cap):
     assert float((got - ref).abs().max()) <= tol * dF
 
 
+# grids that do not divide into the kernels' tiles (K3 32×32; K4 30 columns
+# and 16 or 17 rows), and one whose H is smaller than a tile
+GRIDS = [(19, 36), (181, 360), (721, 1440), (11, 40)]
+
+
+def edge_loud(x, factor):
+    """x with rows 0, 1, H−2, H−1 and the columns at the seam scaled by
+    ``factor``: the tiles' clipped rows and wrapped columns."""
+    x = x.clone()
+    h, w = x.shape[-2:]
+    for j in (0, 1, h - 2, h - 1):
+        x[..., j, :] *= factor
+    for i in (0, 1, w - 2, w - 1):
+        x[..., :, i] *= factor
+    return x
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("nsub", [1, 2])
+@pytest.mark.parametrize("shape", GRIDS)
+def test_hyper4_kernel_grids(dev, dtype, nsub, shape):
+    """K3 within f32 1e-5 / f64 1e-11 of max|ΔF| on grids that are not whole
+    tiles, with large values on the edge rows and the seam columns."""
+    h, w = shape
+    r = np.random.default_rng(6)
+    g = make_grid(h, w, device=dev, dtype=dtype)
+    F = edge_loud(_on(dev, 50.0 * r.standard_normal((3, h, w)), dtype), 40.0)
+    k4 = ((0.02 * g.k4_map_unit / 300.0)[None]
+          * _on(dev, r.uniform(0.25, 1.0, (3, 1, 1)), dtype)).contiguous()
+    cos = torch.clamp(g.coslat, min=0.5)
+    before = kernels.launch_counts()["hyper4"]
+    got = stencil.hyperdiffuse_multi(F, k4, 300.0, nsub, g.dlat_rad, g.dlon_rad, cos, A)
+    assert kernels.launch_counts()["hyper4"] == before + 1
+    ref = stencil.hyperdiffuse_multi_ref(F, k4, 300.0, nsub, g.dlat_rad, g.dlon_rad, cos, A)
+    dF = float((ref - F).abs().max())
+    tol = 1e-5 if dtype == torch.float32 else 1e-11
+    assert float((got - ref).abs().max()) <= tol * dF
+
+
 def test_wrappers_refuse_bad_input(dev):
     x = torch.ones((H, W), device=dev)
     with pytest.raises(ValueError):
@@ -149,3 +188,72 @@ def test_ocean_substeps_kernel_matches_plain(dev, dtype, n_tracers, n_sub, k4_ns
         for k in range(r_.shape[0]):
             scale = float(r_[k].abs().max())
             assert float((g_[k] - r_[k]).abs().max()) <= tol * scale, k
+
+
+def k4_check(got, ref, dtype):
+    """Each output plane within f32 1e-4 / f64 1e-12 of max|plane|."""
+    tol = 1e-4 if dtype == torch.float32 else 1e-12
+    for g_, r_ in zip(got, ref):
+        assert g_.shape == r_.shape
+        for k in range(r_.shape[0]):
+            scale = float(r_[k].abs().max())
+            assert float((g_[k] - r_[k]).abs().max()) <= tol * scale, k
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("n_sub,k4_nsub", [(1, 1), (2, 2)])
+@pytest.mark.parametrize("shape", GRIDS)
+def test_ocean_substeps_kernel_grids(dev, dtype, n_sub, k4_nsub, shape):
+    """K4 on grids that are not whole tiles, n_sub and k4_nsub 1 and 2 (the
+    halo grows with both), with large η, SST and tracer values on the edge
+    rows and the seam columns; the tolerances of the main-path test."""
+    mom, st, forc, geo, params = k4_operands(dev, dtype, 3, n_sub, k4_nsub, 5.0e3, shape=shape)
+    mom = torch.cat([mom[:2], edge_loud(mom[2:], 6.0)])
+    st = edge_loud(st - 280.0, 4.0) + 280.0
+    got = ocean.ocean_substeps(mom, st, forc, geo, **params)
+    k4_check(got, ocean.ocean_substeps_plain(mom, st, forc, geo, **params), dtype)
+
+
+def test_ocean_substeps_kernel_deterministic(dev):
+    """Two runs give the same bits: the η mean adds the per-tile partial sums
+    in one fixed order."""
+    for n_sub in (1, 2):
+        mom, st, forc, geo, params = k4_operands(dev, torch.float32, 10, n_sub, 1, 5.0e3)
+        a_ = ocean.ocean_substeps(mom, st, forc, geo, **params)
+        b_ = ocean.ocean_substeps(mom, st, forc, geo, **params)
+        assert all(torch.equal(x, y) for x, y in zip(a_, b_))
+
+
+def test_ocean_substeps_kernel_trace(dev):
+    """A traced launch stamps every stage boundary in order and computes the
+    same bits."""
+    mom, st, forc, geo, params = k4_operands(dev, torch.float32, 10, 1, 1, 5.0e3)
+    trace = torch.zeros((2, ocean_substeps.TRACE_SLOTS), dtype=torch.int64, device=dev)
+    got = ocean_substeps.ocean_substeps_cuda(mom, st, forc, geo, **params, trace=trace)
+    ref = ocean_substeps.ocean_substeps_cuda(mom, st, forc, geo, **params)
+    assert all(torch.equal(x, y) for x, y in zip(got, ref))
+    t = trace.cpu().numpy()
+    assert (t > 0).all() and (np.diff(t[0]) >= 0).all()
+
+
+def test_kernels_replay_in_a_cuda_graph(dev):
+    """One call of K3 and of K4 captured in a CUDA graph replays to the bits
+    of an eager call."""
+    mom, st, forc, geo, params = k4_operands(dev, torch.float32, 10, 1, 1, 5.0e3)
+    g = make_grid(H, W, device=dev, dtype=torch.float32)
+    F = _on(dev, 30.0 * np.random.default_rng(3).standard_normal((5, H, W)), torch.float32)
+    k4 = (0.02 * g.k4_map_unit / 300.0)[None].expand(5, H, W).contiguous()
+
+    def calls():
+        return (hyper4.hyperdiffuse_cuda(F, k4, 300.0, 1, g.dlat_rad, g.dlon_rad,
+                                         g.coslat_cap_02, A),
+                *ocean_substeps.ocean_substeps_cuda(mom, st, forc, geo, **params))
+
+    eager = calls()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = calls()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(captured, eager))
