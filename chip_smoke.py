@@ -22,16 +22,30 @@ Phases, each of which raises on failure (exit code non-zero):
      (``k1_anatomy``, ``k4_anatomy``), and one call of K3 and of K4
      captured in a CUDA graph, whose replay and a second eager call must
      equal the first eager call bit for bit (``graph_replay``);
-  4. the main path, the default planet with river routing off (181×360,
-     float32, ecology, the individual pool and phytoplankton on), built with
-     no device argument: one planetary day of 240 steps, then a second,
-     timed one, both with host syncs turned into errors; state and diags
-     must be finite and physical, the launch counters must grow by exactly
-     3, 3, 1 and 1 per step, and the daily blocks must run once a day. Then
+  4. the main path, the flagship planet of ``__graft_entry__.entry()`` (the
+     default configuration: 181×360, float32, ecology, the individual pool,
+     phytoplankton and river routing on), built with no device argument: one
+     planetary day of 240 steps, then a second, timed one, both with host
+     syncs turned into errors; state and diags must be finite and physical,
+     the launch counters must grow by exactly 3, 3, 1 and 1 per step, the
+     daily blocks must run once a day and the routing event exactly 3 times
+     a day, with its six diags finite and its closure identity holding; two
+     routing events from one buffer must give the same bits. Then the
+     planet without routing (the main path before routing was ported) and
      the path without ecology and phytoplankton (the slice of the first
-     bring-up) the same way, with its own launch counts;
+     bring-up), two shorter chunks each, with their own launch counts;
   5. one float64 step of the main path on the card against the same step on
-     the CPU from the same warm state.
+     the CPU from the same warm state, with the routing clock one step
+     before an event, so the compared step routes;
+  6. the world driver, ``QingdaiWorld``, in a temporary working directory on
+     the flagship planet (mutation on): 210 steps through ``run()``, an
+     autosave, 36 more; a fresh world resumes from the sidecar and runs the
+     36 (across the routing event at step 216 and the day's end at 240,
+     where mutation draws from the restored generator), and its state must
+     equal the uninterrupted run's bit for bit. The card's machine has no
+     NetCDF library (h5py, netCDF4), so the autosave writes the sidecar and
+     the JSON files and skips the NetCDF set, and the resume reads the
+     sidecar alone.
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -46,10 +60,13 @@ import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-MAIN = {"QD_HYDRO_ENABLE": "0"}
+MAIN = {}                                   # the flagship planet: every default on
+PLANET = {"QD_HYDRO_ENABLE": "0"}
 SLICE = {"QD_ECO_ENABLE": "0", "QD_PHYTO_ENABLE": "0", "QD_HYDRO_ENABLE": "0"}
 H, W = 181, 360
 STEPS_PER_DAY = 240
+EVENTS_PER_DAY = 3                          # QD_HYDRO_DT_HOURS 6 h at dt 300 s
+SHORT_STEPS = 120                           # a chunk of the two other paths
 N_SPECIES = 10          # PhytoConfig.n_species: K4's stack is SST + 10 tracers
 # (kernel, CUDA source, TPU kernel it replaces, launches per step on each path)
 KERNELS = [
@@ -572,8 +589,8 @@ def run_path(env, steps, days, label, tag):
     """Build the path with no device argument, run ``days`` chunks of
     ``steps`` steps under sync-debug "error", time the last chunk; return
     (model, state, diags, per-chunk launch counts, per-chunk daily calls,
-    ms/step)."""
-    from qingdai_tpu_torch import entry, kernels
+    per-chunk routing events, ms/step)."""
+    from qingdai_tpu_torch import entry, kernels, routing
     from qingdai_tpu_torch import model as M
 
     t0 = time.perf_counter()
@@ -582,26 +599,32 @@ def run_path(env, steps, days, label, tag):
         raise AssertionError(f"build_world ran on {mdl.device}, not the card")
     chunk = M.make_chunk_fn(mdl, steps)
     torch.cuda.synchronize()
+    rs = mdl.routing_static
     print(f"{tag} built in {time.perf_counter() - t0:.2f} s: {H}x{W} float32, "
           f"{mdl.n_ocean_substeps} ocean substep(s), dt {mdl.dt:.0f} s, "
-          f"eco {mdl.eco_static is not None}, phyto {mdl.phyto_static is not None}")
-    counts, daily = [], []
+          f"eco {mdl.eco_static is not None}, phyto {mdl.phyto_static is not None}, "
+          + (f"routing on ({int(rs.land_flat.sum())} land cells, {rs.n_lakes} lakes, "
+             f"{rs.n_levels} levels, {len(rs.rounds)} rounds)" if rs is not None
+             else "routing off"))
+    counts, daily, events = [], [], []
     watch = DailyCounts()
     torch.cuda.set_sync_debug_mode("error")
     try:
         for _ in range(days):
             a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             kernels.reset_launch_counts()
+            routing.route_event.events = 0
             a.record()
             st, diags = chunk(st)
             b.record()
             counts.append(kernels.launch_counts())
             daily.append(watch.take())
+            events.append(routing.route_event.events)
     finally:
         torch.cuda.set_sync_debug_mode("default")
         watch.restore()
     b.synchronize()
-    return mdl, st, diags, counts, daily, a.elapsed_time(b) / steps
+    return mdl, st, diags, counts, daily, events, a.elapsed_time(b) / steps
 
 
 def check_run(st, diags, steps, eco):
@@ -627,46 +650,103 @@ def check_run(st, diags, steps, eco):
     return ts, umax
 
 
+ROUTING_DIAGS = ("routing_ocean_inflow_kgps", "routing_mass_error_kg", "routing_stranded_kg",
+                 "routing_routed_mass_kg", "routing_store_out_kg", "routing_lake_delta_kg")
+
+
+def check_routing(diags):
+    """The six routing diags of the last step: finite, mass routed, and
+    mass_error − (store_out − lake_delta) within 1e-6 of the routed mass."""
+    d = {k: float(diags[k][-1]) for k in ROUTING_DIAGS}
+    if not all(np.isfinite(v) for v in d.values()):
+        raise AssertionError(f"routing diags not finite: {d}")
+    if not d["routing_routed_mass_kg"] > 0.0:
+        raise AssertionError(f"no routed mass: {d}")
+    gap = d["routing_mass_error_kg"] - (d["routing_store_out_kg"] - d["routing_lake_delta_kg"])
+    if not abs(gap) <= 1e-6 * d["routing_routed_mass_kg"]:
+        raise AssertionError(f"routing closure: mass_error − (store_out − lake_delta) = {gap} "
+                             f"> 1e-6 · routed mass ({d})")
+    return d, gap
+
+
+def routing_event_check(mdl, st, label):
+    """Two routing events from one buffer (the state's, scaled up to a
+    day's runoff) must give the same bits; then the event's device time and
+    launches a call."""
+    from qingdai_tpu_torch import routing
+
+    rs = mdl.routing_static
+    acc = (st.routing.buffer_kg * 4.0).reshape(-1)
+    vol = st.routing.lake_volume_kg
+    a, b = routing.route_event(rs, acc, vol), routing.route_event(rs, acc, vol)
+    torch.cuda.synchronize()
+    same = (torch.equal(a[0], b[0]) and torch.equal(a[2], b[2])
+            and all(torch.equal(x, y) for x, y in zip(a[1], b[1])))
+    routed = float(a[1][0])
+    if not same:
+        raise AssertionError("two routing events from one buffer differ")
+    if not routed > 0.0:
+        raise AssertionError("the routing event's buffer is empty")
+    ms, n_dev = device_profile(lambda: routing.route_event(rs, acc, vol), what="route_event")
+    print(f"routing: two events from one buffer bit-equal (flow_accum, ocean/store sums, lake "
+          f"volumes; routed {routed:.6e} kg); one event {ms:.5f} device ms, {n_dev:g} device "
+          f"launches ({rs.n_levels} levels, {len(rs.rounds)} rounds) [{label}]")
+
+
 def phase4_paths(label):
     from qingdai_tpu_torch.physics.orbital import T_PLANET
 
+    want_day = {name: per_step * STEPS_PER_DAY for name, _, _, per_step in KERNELS}
     # the main path: two planetary days, the second timed
-    mdl, st, diags, counts, daily, ms_step = run_path(MAIN, STEPS_PER_DAY, 2, label, "main path")
+    mdl, st, diags, counts, daily, events, ms_step = run_path(MAIN, STEPS_PER_DAY, 2, label,
+                                                              "main path")
     for day, c in enumerate(counts, 1):
-        want = {name: per_step * STEPS_PER_DAY for name, _, _, per_step in KERNELS}
-        if c != want:
-            raise AssertionError(f"main path day {day}: launch counts {c} != {want}")
+        if c != want_day:
+            raise AssertionError(f"main path day {day}: launch counts {c} != {want_day}")
     # a fresh run's phytoplankton accumulator fires on step 1 and at the end
     # of each day; the ecology and individual-pool blocks at the end of each day
     want_daily = [{"eco_step_daily": 1, "indiv_step_daily": 1, "phyto_step_daily": 2},
                   {"eco_step_daily": 1, "indiv_step_daily": 1, "phyto_step_daily": 1}]
     if daily != want_daily:
         raise AssertionError(f"daily blocks ran {daily}, expected {want_daily}")
+    if events != [EVENTS_PER_DAY] * 2:
+        raise AssertionError(f"routing events per day {events}, expected {EVENTS_PER_DAY}")
     print(f"main path launch counts per day: {counts[-1]} (3, 3, 1, 1 per step); "
-          f"daily blocks per day: {daily}")
+          f"daily blocks per day: {daily}; routing events per day: {events}")
     ts, umax = check_run(st, diags, STEPS_PER_DAY, eco=True)
+    rd, gap = check_routing(diags)
     syh = 3600.0 / (ms_step / 1000.0) * mdl.dt / T_PLANET
     print(f"day 2: Ts_mean {ts[-1]:.3f} K, TOA_net {float(diags['TOA_net'][-1]):.3f} W/m2, "
           f"u_max {umax:.2f} m/s, chl_mean {float(diags['chl_mean'][-1]):.5f}, "
           f"lai_mean {float(diags['lai_mean'][-1]):.4f}; all leaves and diags finite")
+    print("routing diags, last event of day 2: " + ", ".join(f"{k[8:]} {v:.6e}"
+                                                              for k, v in rd.items())
+          + f"; mass_error − (store_out − lake_delta) = {gap:.3e}")
     print(f"main path 181x360 f32: {ms_step:.4f} ms/step, {syh:.3f} sim-years/hour [{label}]")
+    routing_event_check(mdl, st, label)
+    del mdl, diags
+    flagship, main_counts = st, counts[-1]
 
-    # the path without ecology and phytoplankton: two days, the second timed
-    _, st2, diags2, counts2, _, ms2 = run_path(SLICE, STEPS_PER_DAY, 2, label, "slice")
-    want = {name: per_step * STEPS_PER_DAY for name, _, _, per_step in KERNELS}
-    if any(c != want for c in counts2):
-        raise AssertionError(f"slice: launch counts {counts2} != {want} a day")
-    check_run(st2, diags2, STEPS_PER_DAY, eco=False)
-    syh2 = 3600.0 / (ms2 / 1000.0) * mdl.dt / T_PLANET
-    print(f"slice launch counts per day: {counts2[-1]}; "
-          f"slice 181x360 f32: {ms2:.4f} ms/step, {syh2:.3f} sim-years/hour [{label}]")
-    return st, counts[-1]
+    # the planet without routing and the slice: two shorter chunks each,
+    # the second timed
+    want = {name: per_step * SHORT_STEPS for name, _, _, per_step in KERNELS}
+    for env, tag in ((PLANET, "planet without routing"), (SLICE, "slice")):
+        mdl, st, diags, counts, _, events, ms = run_path(env, SHORT_STEPS, 2, label, tag)
+        if any(c != want for c in counts) or any(events):
+            raise AssertionError(f"{tag}: launch counts {counts} != {want} a chunk, or "
+                                 f"routing events {events}")
+        check_run(st, diags, SHORT_STEPS, eco=env is PLANET)
+        syh = 3600.0 / (ms / 1000.0) * mdl.dt / T_PLANET
+        print(f"{tag} launch counts per {SHORT_STEPS} steps: {counts[-1]}; {tag} 181x360 f32: "
+              f"{ms:.4f} ms/step, {syh:.3f} sim-years/hour [{label}]")
+        del mdl, st, diags
+    return flagship, main_counts
 
 
 def _step_diffs(st, dtype, dev):
     """max|card − CPU| / max|CPU| per leaf and diag after one step of the main
     path from ``st`` converted to ``dtype``: over every row, and without the
-    two pole rows."""
+    two pole rows. Both steps must route."""
     from qingdai_tpu_torch import entry
     from qingdai_tpu_torch import model as M
     from qingdai_tpu_torch.convert import world_from_numpy, world_to_numpy
@@ -674,6 +754,8 @@ def _step_diffs(st, dtype, dev):
     def one_step(where):
         mdl, _ = entry.build_world(H, W, extra_env=MAIN, device=where, dtype=dtype)
         s1, d1 = M.make_step_fn(mdl)(world_from_numpy(st, where, dtype))
+        if s1.routing.t_accum != 0.0:
+            raise AssertionError("phase 5's step did not route")
         flat = world_to_numpy(s1)
         flat.update({f"diag.{k}": v.cpu().numpy() for k, v in d1.items()})
         return flat
@@ -695,22 +777,109 @@ def _step_diffs(st, dtype, dev):
 
 
 def phase5_cpu_reference(st, dev):
-    """One step on the card and the same step on the CPU from one warm state.
+    """One step on the card and the same step on the CPU from one warm state
+    of the main path, its routing clock one step before an event.
 
     In float32 the pole rows are chaotic by construction: their cos cap of
     1e-6 puts the departure point ~5e5 cells upwind at 200 m/s, so one ulp of
     u moves it by cells. Those differences are printed; the bound of 1e-4 is
     held on the float64 step from the same state, which runs the float64
     instantiation of every kernel inside the step."""
+    import dataclasses
+
+    t_event = 6 * 3600.0 - 300.0
+    st = dataclasses.replace(st, routing=dataclasses.replace(st.routing, t_accum=t_event))
     for dtype in (torch.float32, torch.float64):
         full, inner = _step_diffs(st, dtype, dev)
         top = sorted(full, key=lambda k: -full[k])[:8]
-        print(f"card vs CPU, one {dtype} step, max|diff|/max|value| (all rows; without "
-              "the pole rows): " + ", ".join(f"{k} {full[k]:.2e}; {inner[k]:.2e}" for k in top))
+        print(f"card vs CPU, one {dtype} step through a routing event, max|diff|/max|value| "
+              "(all rows; without the pole rows): "
+              + ", ".join(f"{k} {full[k]:.2e}; {inner[k]:.2e}" for k in top))
     worst = max(full.values())
     if worst > 1e-4:
         raise AssertionError(f"card and CPU float64 steps differ by {worst}")
+    routing_worst = max(v for k, v in full.items() if "routing" in k)
+    print(f"phase 5: float64 routing leaves and diags, card vs CPU: {routing_worst:.2e}")
     return worst
+
+
+def same_bits(a, b) -> bool:
+    """Equal dtype, shape and bytes (NaN sentinels included)."""
+    a, b = np.asarray(a), np.asarray(b)
+    return a.dtype == b.dtype and a.shape == b.shape and a.tobytes() == b.tobytes()
+
+
+PHASE6_ENV = {"QD_ECO_MUT_RATE": "1.0", "QD_AUTOSAVE_ENABLE": "0", "QD_CHUNK_STEPS": "240"}
+
+
+def phase6_world(label):
+    """The world driver on the card, resumed from its sidecar (module
+    docstring, phase 6). Returns run()'s ms/step."""
+    import os
+    import tempfile
+
+    from qingdai_tpu_torch import routing
+    from qingdai_tpu_torch import world as world_mod
+    from qingdai_tpu_torch.convert import world_to_numpy
+    from qingdai_tpu_torch.physics.orbital import T_PLANET
+
+    old_env = {k: v for k, v in os.environ.items() if k.startswith("QD_")}
+    old_cwd = os.getcwd()
+    with tempfile.TemporaryDirectory(prefix="qd_phase6_") as tmp:
+        os.chdir(tmp)
+        for k in old_env:
+            del os.environ[k]
+        os.environ.update(PHASE6_ENV)
+        try:
+            t0 = time.perf_counter()
+            wa = world_mod.QingdaiWorld(verbose=False)
+            if wa.device.type != "cuda" or wa.model.routing_static is None:
+                raise AssertionError(f"the world runs on {wa.device}, routing "
+                                     f"{wa.model.routing_static is not None}")
+            built = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            wa.run(duration_seconds=210 * wa.model.dt)
+            torch.cuda.synchronize()
+            ms_run = (time.perf_counter() - t0) * 1e3 / 210
+            wa.autosave()
+            written = sorted(os.listdir("data"))
+            wa.step_chunk(36)
+            wb = world_mod.QingdaiWorld(verbose=False)
+            if wb.restore_source != "sidecar" or wb.state.clock.step_idx != 210:
+                raise AssertionError(f"resume from {wb.restore_source} at step "
+                                     f"{wb.state.clock.step_idx}")
+            watch = DailyCounts()
+            routing.route_event.events = 0
+            try:
+                wb.step_chunk(36)
+            finally:
+                watch.restore()
+            ran = (routing.route_event.events, watch.take()["eco_step_daily"])
+            if ran != (1, 1):
+                raise AssertionError(f"the resumed 36 steps ran {ran[0]} routing events and "
+                                     f"{ran[1]} daily blocks, expected 1 and 1")
+            fa, fb = world_to_numpy(wa.state), world_to_numpy(wb.state)
+            bad = [k for k in fa if not same_bits(fa[k], fb.get(k))]
+            if set(fa) != set(fb) or bad:
+                raise AssertionError(f"the resumed run differs from the uninterrupted one: "
+                                     f"{bad[:8]}")
+            if not torch.equal(wa.model.generator.get_state(), wb.model.generator.get_state()):
+                raise AssertionError("the generators differ after the resume")
+            n_act = int(wb.state.eco.n_active)
+        finally:
+            os.chdir(old_cwd)
+            for k in [k for k in os.environ if k.startswith("QD_")]:
+                del os.environ[k]
+            os.environ.update(old_env)
+    syh = 3600.0 / (ms_run / 1000.0) * 300.0 / T_PLANET
+    print(f"phase 6: world built in {built:.2f} s; autosave wrote {written}; resumed from the "
+          f"sidecar at step 210, 36 steps (1 routing event, 1 daily block, {n_act} species "
+          f"active) equal the uninterrupted run's bit for bit in all {len(fa)} leaves and the "
+          f"generator state")
+    print(f"phase 6: world run() 210 steps of the flagship planet 181x360 f32: "
+          f"{ms_run:.4f} ms/step, {syh:.3f} sim-years/hour [{label}]")
+    return ms_run
 
 
 def main():
@@ -746,6 +915,8 @@ def main():
     st, counts = phase4_paths(label)
     worst = phase5_cpu_reference(st, dev)
     print(f"phase 5: card and CPU float64 steps agree to {worst:.2e} relative")
+    del st
+    phase6_world(label)
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels_line = [{"name": name, "route": "cuda", "source": src, "replaces": rep,

@@ -13,6 +13,7 @@ import numpy as np
 import torch
 
 from . import grid as grid_mod
+from . import routing
 from . import state as state_mod
 from .ecology import individuals, phyto, population
 
@@ -20,10 +21,11 @@ _PORT_CLASSES = {cls.__name__: cls for cls in (
     state_mod.AtmosState, state_mod.OceanState, state_mod.LandState, state_mod.EnergyState,
     state_mod.ClockState, state_mod.AlbedoCaches, state_mod.WorldState,
     state_mod.StaticFields, grid_mod.Grid,
-    population.EcoState, individuals.IndivState, phyto.PhytoState)}
-# host numbers of the port's clock
+    population.EcoState, individuals.IndivState, phyto.PhytoState,
+    routing.RoutingState)}
+# host numbers of the port's clocks
 _HOST_INT = ("step_idx",)
-_HOST_FLOAT = ("accum_t_day", "phyto_accum")
+_HOST_FLOAT = ("accum_t_day", "phyto_accum", "t_accum")
 
 
 def _leaf(x, device, dtype):
@@ -45,16 +47,14 @@ def world_from_numpy(jax_obj, device="cuda", dtype=torch.float64):
     included) into the port's class of the same name. A port object
     converts too, which moves it to another device or dtype.
 
-    The clock's step counter becomes a Python int and its two day
-    accumulators Python floats; the JAX ``rng`` key is dropped (the port's
-    random stream is ``Model.generator``); a JAX world whose routing group
-    is set cannot be carried over and raises ``ValueError``."""
+    The clock's step counter becomes a Python int, and its two day
+    accumulators and the routing group's ``t_accum`` Python floats; the JAX
+    ``rng`` key is dropped (the port's random stream is
+    ``Model.generator``)."""
     device = grid_mod.resolve_device(device)
     cls = _PORT_CLASSES.get(type(jax_obj).__name__)
     if cls is None:
         raise TypeError(f"no port counterpart for {type(jax_obj).__name__}")
-    if cls is state_mod.WorldState and getattr(jax_obj, "routing", None) is not None:
-        raise ValueError("the port does not carry the routing state group yet")
     kw = {}
     for f in dataclasses.fields(cls):
         x = getattr(jax_obj, f.name)

@@ -5,8 +5,10 @@ Sampled cells and per-individual species ids are drawn once at build time
 with NumPy's ``default_rng(42)``, as in the JAX package, so they are static
 index tensors. The substep fires on a device condition and is selected with
 ``torch.where``; the day's per-individual energy and stress are materialized
-from per-cell buffers once a day. Scatter-adds are ``index_add``: on a card
-their order is not fixed, so the last bits of a sum may differ between runs.
+from per-cell buffers once a day. Every sum has a fixed order of additions,
+so a run on the card replays bit for bit: the per-species sums of a cell's
+individuals are sums over a static one-hot of their species, and the recruit
+spill adds through ``ops.scatter`` plans.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ import numpy as np
 import torch
 
 from ..config import EcologyConfig
+from ..ops.scatter import index_add_fixed, scatter_plan
 from . import population as pop_mod
 from .population import EcoState, EcoStatic
 from .spectral import dual_star_insolation_to_bands_points
@@ -32,6 +35,10 @@ class IndivStatic:
     sample_i: torch.Tensor      # [C] int64
     cell_index: torch.Tensor    # [N] int64 individual → cell
     species_id: torch.Tensor    # [N] int64
+    # [C, per_cell, S]: 1 where the cell's individual is of the species
+    # (individual n is the (n mod per_cell)-th of cell n // per_cell)
+    species_onehot: torch.Tensor
+    spill: tuple                # ScatterPlan of each recruit-spill direction
 
 
 @dataclasses.dataclass(frozen=True)
@@ -79,6 +86,12 @@ def build_individuals(grid_shape, land_mask, es: EcoStatic, eco: EcoState,
     tol = np.clip(eco.drought_tolerance.cpu().numpy()[species_id], 0.0, 1.0)
 
     F = max(1, int(cfg.indiv_substeps_per_day))
+    onehot = species_id.reshape(C, per_cell)[:, :, None] == np.arange(es.S)[None, None, :]
+    # the recruit spill's targets (individuals.py:292-306, as the JAX package
+    # pairs them); targets of one direction coincide at a clamped pole row
+    spill_j = [np.maximum(jj - 1, 0), np.minimum(jj + 1, H - 1), jj, jj]
+    spill_i = [(ii - 1) % W, (ii + 1) % W, ii, ii]
+    spill = tuple(scatter_plan(a * W + b, device) for a, b in zip(spill_j, spill_i))
 
     def t(x, dt_=dtype):
         return torch.as_tensor(np.asarray(x)).to(device=device, dtype=dt_)
@@ -87,6 +100,7 @@ def build_individuals(grid_shape, land_mask, es: EcoStatic, eco: EcoState,
         n_cells=C, per_cell=per_cell, ns=es.S, fires_per_day=F,
         sample_j=t(jj, torch.int64), sample_i=t(ii, torch.int64),
         cell_index=t(cell_index, torch.int64), species_id=t(species_id, torch.int64),
+        species_onehot=t(onehot), spill=spill,
     )
     state = IndivState(
         E_day=torch.zeros((N,), dtype=dtype, device=device),
@@ -158,24 +172,25 @@ def indiv_step_daily(ist: IndivStatic, st: IndivState, es: EcoStatic,
     split; LAI growth/decay with a 4-neighbour recruit spill; seed-bank
     coupling; stress decay (individuals.py:193-361). Returns
     (IndivState, EcoState)."""
-    S, C = ist.ns, ist.n_cells
-    sp, cell = ist.species_id, ist.cell_index
+    S, C, P = ist.ns, ist.n_cells, ist.per_cell
     dtype = st.E_day.dtype
+    onehot = ist.species_onehot
+
+    def per_species(x):
+        """[S, C] sums over each cell's individuals of each species."""
+        return torch.sum(onehot * x.reshape(C, P, 1), dim=1).T
 
     E_day, add_wsd = materialize_day(ist, st)
     wsd_now = st.water_stress_days + add_wsd
 
-    flat_idx = sp * C + cell
-    E_s_c = torch.zeros((S * C,), dtype=dtype, device=sp.device).index_add(
-        0, flat_idx, E_day).reshape(S, C)
+    E_s_c = per_species(E_day)
     denom = torch.sum(E_s_c, dim=0) + 1e-12
     W_s_c = E_s_c / denom[None, :]
 
-    mean_stress = torch.zeros((S, C), dtype=dtype, device=sp.device)
+    mean_stress = torch.zeros((S, C), dtype=dtype, device=E_day.device)
     if cfg.indiv_stress_penalty > 0.0:
-        zeros = torch.zeros((S * C,), dtype=dtype, device=sp.device)
-        stress_s_c = zeros.index_add(0, flat_idx, wsd_now).reshape(S, C)
-        cnt_s_c = zeros.index_add(0, flat_idx, torch.ones_like(wsd_now)).reshape(S, C)
+        stress_s_c = per_species(wsd_now)
+        cnt_s_c = torch.sum(onehot, dim=1).T
         mean_stress = torch.where(cnt_s_c > 0, stress_s_c / torch.clamp(cnt_s_c, min=1.0), 0.0)
         pen = 1.0 / (1.0 + cfg.indiv_stress_penalty * mean_stress)
         W_s_c = W_s_c * pen
@@ -206,15 +221,12 @@ def indiv_step_daily(ist: IndivStatic, st: IndivState, es: EcoStatic,
     LAI_flat = LAI_flat.index_copy(2, flat_cells, new_cols)
 
     # recruit spill to 4 neighbours (individuals.py:292-306); neighbours of
-    # two sampled cells may coincide, so the adds accumulate
+    # two sampled cells may coincide, so the adds accumulate, in a fixed order
     recruit = torch.clamp(new_total - total_old, min=0.0) * cfg.lai_recruit_frac
     share = recruit / 4.0
     add_each = ((share / max(K, 1))[None, None, :] * W_s_c[:, None, :]).expand(S, K, C)
-    jn = [torch.clamp(ist.sample_j - 1, min=0), torch.clamp(ist.sample_j + 1, max=H - 1),
-          ist.sample_j, ist.sample_j]
-    in_ = [(ist.sample_i - 1) % W_, (ist.sample_i + 1) % W_, ist.sample_i, ist.sample_i]
-    for jj, ii in zip(jn, in_):
-        LAI_flat = LAI_flat.index_add(2, jj * W_ + ii, add_each)
+    for plan in ist.spill:
+        LAI_flat = index_add_fixed(LAI_flat, 2, plan, add_each)
 
     LAI_SK = torch.clamp(LAI_flat.reshape(S_, K, H, W_), 0.0, cfg.lai_max)
     eco = dataclasses.replace(eco, LAI_SK=LAI_SK)

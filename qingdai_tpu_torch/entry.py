@@ -8,6 +8,7 @@ import os
 import numpy as np
 import torch
 
+from . import hydro_network as hn
 from . import model as M
 from . import topography as topo
 from .config import SimConfig
@@ -23,8 +24,11 @@ def build_world(n_lat: int, n_lon: int, dt_seconds: float = 300.0, extra_env=Non
     ``hermetic=True`` removes every other ambient ``QD_*`` variable while the
     snapshot is taken, so the world depends only on the arguments; the
     environment is restored afterwards either way. The topography comes from
-    the port's copy of the JAX package's ``topography`` with the same seed, so
-    the two packages build the same planet."""
+    the port's copy of the JAX package's ``topography`` with the same seed,
+    and the river network (when routing is on) from its copy of
+    ``hydro_network``, so the two packages build the same planet: with no
+    ``extra_env`` at 181×360, the flagship planet of
+    ``__graft_entry__.entry()``."""
     device = resolve_device(device)
     env = {"QD_N_LAT": str(n_lat), "QD_N_LON": str(n_lon), "QD_DT_SECONDS": str(dt_seconds)}
     env.update(extra_env or {})
@@ -46,5 +50,7 @@ def build_world(n_lat: int, n_lon: int, dt_seconds: float = 300.0, extra_env=Non
     lon_mesh, lat_mesh = np.meshgrid(lon, lat)
     mask, elev = topo.create_land_sea_mask(lat_mesh, lon_mesh, seed=cfg.run.seed)
     alb, fric = topo.generate_base_properties(mask, elev, lat_mesh)
-    mdl = M.build_model(cfg, mask, alb, fric, elevation=elev, device=device, dtype=dtype)
+    net = hn.build_network(lat, lon, elev, mask) if cfg.hydrology.routing_enable else None
+    mdl = M.build_model(cfg, mask, alb, fric, elevation=elev, network=net, device=device,
+                        dtype=dtype)
     return mdl, M.init_world(mdl)

@@ -1,17 +1,19 @@
-"""The coupled planet step (port of ``qingdai_tpu/model.py``): the planet
-with ecology, the individual pool and phytoplankton, without river routing.
+"""The coupled planet step (port of ``qingdai_tpu/model.py``): the flagship
+planet with ecology, the individual pool, phytoplankton and river routing.
 
 Per-step order as in the JAX package: hybrid precip → daily accumulators and
 the day-boundary block (ecology daily, individual pool daily, banded albedo)
 → cloud blending and advection → insolation → lapse/snowpack/glacier →
 individual-pool substep → phytoplankton daily → albedo synthesis (ecology,
 bands, ocean color, snow) → Teq → atmosphere step → ocean step with SST
-feedback and the chlorophyll transport → land bucket → diagnostics.
+feedback and the chlorophyll transport → land bucket → D8 routing →
+diagnostics.
 
 The step never syncs with the host. Data-dependent choices are
-``torch.where``. Cadences are Python ``if``s on host numbers: the step index
-and the two day accumulators of the clock, which depend only on the step
-count and dt, so each daily block runs once a day and not as a masked
+``torch.where``. Cadences are Python ``if``s on host numbers: the step index,
+the two day accumulators of the clock and the routing event clock, which
+depend only on the step count and dt, so each daily block runs once a day
+and each routing event once every ``QD_HYDRO_DT_HOURS``, not as a masked
 computation every step.
 """
 
@@ -40,6 +42,7 @@ from .physics import energy as en
 from .physics import forcing
 from .physics import hydrology as hyd
 from .physics import orbital
+from .routing import RoutingStatic, build_routing_static, init_routing_state, routing_step
 from .state import (AlbedoCaches, ClockState, EnergyState, LandState, StaticFields,
                     WorldState, init_albedo_caches, init_atmos, init_clock,
                     init_energy_state, init_land, init_ocean, round_to)
@@ -69,6 +72,7 @@ class Model:
     eco_static: Optional[eco_mod.EcoStatic] = None
     indiv_static: Optional[indiv_mod.IndivStatic] = None
     phyto_static: Optional[phyto_mod.PhytoStatic] = None
+    routing_static: Optional[RoutingStatic] = None
     eco_state0: Optional[eco_mod.EcoState] = None
     indiv_state0: Optional[indiv_mod.IndivState] = None
     phyto_state0: Optional[phyto_mod.PhytoState] = None
@@ -76,13 +80,11 @@ class Model:
 
 
 def build_model(cfg: SimConfig, land_mask, base_albedo, friction, elevation=None,
-                device="cuda", dtype=torch.float32) -> Model:
-    """Assemble the static data from topography arrays (host side). Runs on
-    the card unless ``device`` says otherwise."""
-    if cfg.hydrology.routing_enable:
-        raise NotImplementedError(
-            "qingdai_tpu_torch does not port river routing (QD_HYDRO_ENABLE) yet (ROADMAP.md "
-            "Queue 1: routing comes next); set QD_HYDRO_ENABLE=0")
+                network: Optional[dict] = None, device="cuda",
+                dtype=torch.float32) -> Model:
+    """Assemble the static data from topography and network arrays (host
+    side). Runs on the card unless ``device`` says otherwise. Routing is
+    built when it is on and a ``network`` is given, as in the JAX package."""
     device = resolve_device(device)
     grid = make_grid(cfg.run.n_lat, cfg.run.n_lon, device=device, dtype=dtype)
     mask_np = np.asarray(land_mask)
@@ -112,6 +114,8 @@ def build_model(cfg: SimConfig, land_mask, base_albedo, friction, elevation=None
     if cfg.phyto.enabled:
         sub["phyto_static"], sub["phyto_state0"], _ = phyto_mod.build_phyto(
             grid.shape, mask_np, cfg.phyto, cfg.ecology, cfg.ocean.H_m, device, dtype)
+    if cfg.hydrology.routing_enable and network is not None:
+        sub["routing_static"] = build_routing_static(network, grid, dtype)
     return Model(grid=grid, cfg=cfg, static=static,
                  n_ocean_substeps=static_substeps(grid, cfg.ocean, cfg.run.dt_seconds),
                  dt=float(cfg.run.dt_seconds), device=device, dtype=dtype,
@@ -136,11 +140,14 @@ def init_world(model: Model, t0_seconds: float = 0.0, seed: int = 42) -> WorldSt
         atmos = dataclasses.replace(atmos, T_s=Ts0)
         ocean = dataclasses.replace(
             ocean, sst=torch.where(model.static.land_mask == 0, Ts0, ocean.sst))
+    routing = (init_routing_state(model.routing_static, dtype)
+               if model.routing_static is not None else None)
     return WorldState(atmos=atmos, ocean=ocean, land=init_land(grid, dtype),
                       energy=init_energy_state(cfg, grid, dtype),
                       clock=init_clock(grid, t0_seconds, dtype),
                       albedo=init_albedo_caches(grid, dtype),
-                      eco=model.eco_state0, indiv=model.indiv_state0, phyto=phyto0)
+                      eco=model.eco_state0, indiv=model.indiv_state0, phyto=phyto0,
+                      routing=routing)
 
 
 def make_step_fn(model: Model, with_diags: bool = True):
@@ -161,6 +168,7 @@ def make_step_fn(model: Model, with_diags: bool = True):
     eco_on = es is not None and ecfg.enabled
     indiv_on = eco_on and ist is not None and ecfg.indiv_enable
     phyto_on = ps is not None and cfg.phyto.enabled
+    routing_on = model.routing_static is not None and hcfg.routing_enable
     # the clock's host accumulators take the values of the model dtype
     dt_r, day_r = round_to(dt, model.dtype), round_to(day_s, model.dtype)
     true_ = torch.ones((), dtype=torch.bool, device=model.device)
@@ -387,6 +395,10 @@ def make_step_fn(model: Model, with_diags: bool = True):
         E_in = E_flux * landf * non_glacier
         W_land, R_bucket = hyd.update_land_bucket(lstate.W_land, P_in, E_in, hcfg, dt)
         R_total = R_bucket + melt_flux_land * glacier
+        routing_state = state.routing
+        if routing_on:
+            routing_state = routing_step(model.routing_static, routing_state, hcfg, R_total,
+                                         dt, precip, E_flux)
         lstate = LandState(W_land=W_land, S_snow=S_snow_next, C_snow=C_snow_map,
                            glacier_mask=glacier)
 
@@ -408,7 +420,7 @@ def make_step_fn(model: Model, with_diags: bool = True):
                            alpha_water_scalar=alpha_water, has_alpha_water=has_water)
         new_state = WorldState(atmos=atmos, ocean=ocn, land=lstate, energy=estate,
                                clock=clock, albedo=alb, eco=eco_state, indiv=indiv_state,
-                               phyto=phyto_state)
+                               phyto=phyto_state, routing=routing_state)
         if not with_diags:
             return new_state, {}
 
@@ -469,6 +481,17 @@ def make_step_fn(model: Model, with_diags: bool = True):
                                            / wsum_o)
                 diag["oceanE_sstp_mean"] = (torch.sum(torch.where(polar_o, ocn.sst, 0.0) * wa)
                                             / wsum_p)
+        if routing_on:
+            # mass_error = store_out − lake_delta; stranded is the reference's
+            # lake-outlet-ordering artifact (routing.RoutingState)
+            diag.update({
+                "routing_ocean_inflow_kgps": routing_state.ocean_inflow_kgps,
+                "routing_mass_error_kg": routing_state.mass_error_kg,
+                "routing_stranded_kg": routing_state.stranded_kg,
+                "routing_routed_mass_kg": routing_state.routed_mass_kg,
+                "routing_store_out_kg": routing_state.store_out_kg,
+                "routing_lake_delta_kg": routing_state.lake_delta_kg,
+            })
         return new_state, diag
 
     return step

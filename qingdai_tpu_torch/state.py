@@ -3,8 +3,9 @@
 Each state group is a frozen dataclass of tensors, replaced whole by
 ``dataclasses.replace`` as the step advances. The clock's step counter and
 its two day accumulators are host Python numbers, known from the step count
-and dt: every cadence in the step, the daily ecology and phytoplankton
-blocks included, is a Python ``if`` on them, with no host sync.
+and dt, and so is the routing group's event clock: every cadence in the
+step, the daily ecology and phytoplankton blocks and the routing event
+included, is a Python ``if`` on them, with no host sync.
 """
 
 from __future__ import annotations
@@ -94,10 +95,10 @@ class AlbedoCaches:
 
 @dataclasses.dataclass(frozen=True)
 class WorldState:
-    """The planet's state. ``eco``, ``indiv`` and ``phyto`` are
-    ``ecology.population.EcoState``, ``ecology.individuals.IndivState`` and
-    ``ecology.phyto.PhytoState``, or None where the subsystem is off. River
-    routing is not ported yet and has no group."""
+    """The planet's state. ``eco``, ``indiv``, ``phyto`` and ``routing`` are
+    ``ecology.population.EcoState``, ``ecology.individuals.IndivState``,
+    ``ecology.phyto.PhytoState`` and ``routing.RoutingState``, or None where
+    the subsystem is off."""
     atmos: AtmosState
     ocean: OceanState
     land: LandState
@@ -107,6 +108,7 @@ class WorldState:
     eco: Optional[object] = None
     indiv: Optional[object] = None
     phyto: Optional[object] = None
+    routing: Optional[object] = None
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,6 +1,7 @@
 """Compare the step time of two checkouts of the port on one card, in turns.
 
-    python3 scripts/ab_torch_step.py PARENT_ROOT CHANGE_ROOT [--path slice|main] [--days 1]
+    python3 scripts/ab_torch_step.py PARENT_ROOT CHANGE_ROOT [--path slice|main|planet]
+                                     [--days 1]
 
 Runs the chosen path of each checkout's ``qingdai_tpu_torch`` at 181×360
 float32 in its own process, in the order parent, change, change, parent:
@@ -9,7 +10,9 @@ process imports only its own checkout (and builds its kernels there).
 Prints one line per run and a JSON summary with the card's name and power
 limit. The slice is the path without ecology, phytoplankton and routing
 that every version of the port runs; ``main`` is the planet with routing
-off, which needs a checkout that ports ecology. Imports no JAX.
+off, which needs a checkout that ports ecology; ``planet`` is the flagship
+planet with every default on, routing included, which needs a checkout that
+ports routing. Imports no JAX.
 """
 
 import argparse
@@ -18,7 +21,8 @@ import subprocess
 import sys
 
 PATHS = {"slice": {"QD_ECO_ENABLE": "0", "QD_PHYTO_ENABLE": "0", "QD_HYDRO_ENABLE": "0"},
-         "main": {"QD_HYDRO_ENABLE": "0"}}
+         "main": {"QD_HYDRO_ENABLE": "0"},
+         "planet": {}}
 
 RUN = r"""
 import json, sys, torch

@@ -1,18 +1,24 @@
 """Where the time of the PyTorch / CUDA port's step goes, on one NVIDIA card.
 
-    python3 scripts/profile_torch_step.py [--paths main,slice] [--steps 20]
+    python3 scripts/profile_torch_step.py [--paths planet,main,slice] [--steps 72]
                                           [--out output/profile_torch_step.json]
 
 Builds each path of ``chip_smoke.py`` named in ``--paths``, in that order,
-in this one process (``main``: the planet with routing off; ``slice``:
-without ecology and phytoplankton) at 181×360 float32 on the card, runs
-one planetary day to warm up, then measures:
+in this one process (``planet``: the flagship planet, every default on,
+river routing included, the main path since routing was ported; ``main``:
+the planet with routing off, the main path before; ``slice``: also without
+ecology and phytoplankton) at 181×360 float32 on the card, runs one
+planetary day to warm up, then measures:
   - wall ms/step over a second day (CUDA events), with diags every step and
     with diags only on the day's last step;
   - a ``torch.profiler`` window of ``--steps`` steps: device kernel launches
     per step, device time per step, the kernels and the PyTorch ops that take
     the most device time, and the device time of each of the port's four
-    CUDA kernels per call;
+    CUDA kernels per call. The default window is one routing period (72
+    steps at dt 300 s); it starts three days in, so it holds one event;
+  - with routing on, one routing event alone (``routing.route_event`` on the
+    state's buffer) and one firing ``routing.routing_step``: device ms and
+    device launches per event;
   - the device's idle share, 1 − device time per step / unprofiled wall
     time per step.
 Prints one line per measurement and writes them all to ``--out`` as JSON.
@@ -36,7 +42,8 @@ import chip_smoke  # noqa: E402
 from qingdai_tpu_torch import entry  # noqa: E402
 from qingdai_tpu_torch import model as M  # noqa: E402
 
-PATHS = {"main": {"QD_HYDRO_ENABLE": "0"},
+PATHS = {"planet": {},
+         "main": {"QD_HYDRO_ENABLE": "0"},
          "slice": {"QD_ECO_ENABLE": "0", "QD_PHYTO_ENABLE": "0", "QD_HYDRO_ENABLE": "0"}}
 DAY = 240
 # device-side names of the port's kernels
@@ -91,11 +98,32 @@ def profile_window(step, st, steps, wrappers):
     return st, n_dev / steps, dev_us / steps / 1e3, kernels, ops, port
 
 
+def routing_event(mdl, st):
+    """Device ms and device launches of one routing event: the level pass
+    alone, and the whole firing routing_step (buffer add, event, lake P−E,
+    the state's scalars)."""
+    import dataclasses
+    from qingdai_tpu_torch import routing
+
+    rs, rstate = mdl.routing_static, st.routing
+    hcfg = mdl.cfg.hydrology
+    firing = dataclasses.replace(rstate, t_accum=hcfg.dt_hydro_hours * 3600.0 - mdl.dt)
+    zero = torch.zeros(rs.grid_shape, dtype=rstate.buffer_kg.dtype, device=mdl.device)
+    ev_ms, ev_n = chip_smoke.device_profile(
+        lambda: routing.route_event(rs, rstate.buffer_kg.reshape(-1), rstate.lake_volume_kg),
+        what="route_event")
+    st_ms, st_n = chip_smoke.device_profile(
+        lambda: routing.routing_step(rs, firing, hcfg, zero, mdl.dt, zero, zero),
+        what="a firing routing_step")
+    return {"route_event_ms": ev_ms, "route_event_launches": ev_n, "routing_step_ms": st_ms,
+            "routing_step_launches": st_n, "levels": rs.n_levels, "rounds": len(rs.rounds)}
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--paths", default="main,slice",
+    ap.add_argument("--paths", default="planet,main,slice",
                     help="comma-separated paths, run in this order in one process")
-    ap.add_argument("--steps", type=int, default=20)
+    ap.add_argument("--steps", type=int, default=72)
     ap.add_argument("--out", default="output/profile_torch_step.json")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -118,12 +146,20 @@ def main():
                "device_launches_per_step": n_kern, "device_ms_per_step": dev_ms,
                "idle_share": 1.0 - dev_ms / ms_diag, "top_kernels_ms_per_step": kernels,
                "top_ops_device_ms_per_step": ops, "port_kernel_device_ms_per_call": port}
+        if mdl.routing_static is not None:
+            rec["routing_event"] = routing_event(mdl, st)
         out["runs"].append(rec)
         print(f"{name}: wall {ms_diag:.4f} ms/step with diags, {ms_nodiag:.4f} with diags once "
               f"a day; {n_kern:.1f} device launches/step, device {dev_ms:.4f} ms/step, idle "
               f"share {rec['idle_share']:.3f} [{label}]")
         print("  port kernels, device ms per call: "
               + ", ".join(f"{k} {ms:.4f}" for k, ms in port.items()))
+        if "routing_event" in rec:
+            ev = rec["routing_event"]
+            print(f"  routing event: route_event {ev['route_event_ms']:.5f} device ms, "
+                  f"{ev['route_event_launches']:g} device launches; firing routing_step "
+                  f"{ev['routing_step_ms']:.5f} ms, {ev['routing_step_launches']:g} launches "
+                  f"({ev['levels']} levels, {ev['rounds']} rounds) [{label}]")
         for k, ms in kernels:
             print(f"  kernel {ms:.4f} ms/step  {k}")
         for k, ms, cnt in ops:

@@ -69,13 +69,23 @@ def _close(jx, tx, rel=REL, what=""):
     assert err <= rel * scale, (what, err / scale)
 
 
+# fields of the port's IndivStatic that the JAX package's lacks: the static
+# plans of its fixed-order sums (test_indiv_sum_plans_match_the_draws)
+PORT_ONLY = ("species_onehot", "spill")
+
+
 def _close_fields(jobj, tobj, rel=REL):
-    for f in dataclasses.fields(tobj):
-        jv, tv = getattr(jobj, f.name), getattr(tobj, f.name)
+    names = [f.name for f in dataclasses.fields(tobj)]
+    extra = [n for n in names if not hasattr(jobj, n)]
+    assert extra in ([], list(PORT_ONLY)), extra
+    for name in names:
+        if name in extra:
+            continue
+        jv, tv = getattr(jobj, name), getattr(tobj, name)
         if isinstance(tv, (bool, int, float)):
-            assert jv == tv, f.name
+            assert jv == tv, name
         else:
-            _close(jv, tv, rel, f.name)
+            _close(jv, tv, rel, name)
 
 
 def _to_port(jstate):
@@ -277,6 +287,43 @@ def test_indiv_step_daily_matches_jax(built):
                                    b["tcfg"], _t(soil))
     _close_fields(js, ts)
     _close_fields(je, te)
+
+
+def test_indiv_sum_plans_match_the_draws(built):
+    """The port's static plans of its fixed-order sums: the species one-hot
+    of each cell's individuals, and the recruit spill's targets, each
+    direction's in rounds of unique targets that keep the index order."""
+    jist, tist = built["jist"], built["tist"]
+    C, P, S = tist.n_cells, tist.per_cell, tist.ns
+    sp = np.asarray(jist.species_id).reshape(C, P)
+    np.testing.assert_array_equal(tist.species_onehot.numpy(),
+                                  sp[:, :, None] == np.arange(S)[None, None, :])
+    j, i = np.asarray(jist.sample_j), np.asarray(jist.sample_i)
+    want = [np.maximum(j - 1, 0) * W + (i - 1) % W, np.minimum(j + 1, H - 1) * W + (i + 1) % W,
+            j * W + i, j * W + i]
+    assert len(tist.spill) == 4
+    for plan, w in zip(tist.spill, want):
+        perm = np.arange(C) if plan.perm is None else plan.perm.numpy()
+        np.testing.assert_array_equal(plan.index.numpy(), w[perm])
+        for a, b_ in plan.rounds:
+            assert len(set(plan.index.numpy()[a:b_].tolist())) == b_ - a
+        assert sorted(perm.tolist()) == list(range(C))
+
+
+def test_index_add_fixed_matches_index_add():
+    """Duplicate targets: the same sums as index_add, each target's
+    contributions added in the index's order."""
+    from qingdai_tpu_torch.ops.scatter import index_add_fixed, scatter_plan
+    r = np.random.default_rng(3)
+    idx = r.integers(0, 7, 40)
+    src = torch.as_tensor(r.standard_normal((3, 40)))
+    plan = scatter_plan(idx, "cpu")
+    assert len(plan.rounds) > 1
+    got = index_add_fixed(torch.zeros(3, 7, dtype=F64), 1, plan, src)
+    want = np.zeros((3, 7))
+    for k in range(40):                  # the sequential order, added one by one
+        want[:, idx[k]] += src[:, k].numpy()
+    np.testing.assert_array_equal(got.numpy(), want)
 
 
 # ----------------------------------------------------------- phytoplankton

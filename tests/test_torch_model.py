@@ -1,11 +1,12 @@
 """The port's coupled step against the JAX package's, on the CPU at 19×36.
 
-Both packages build two configurations from one hermetic environment: the
-slice (ecology, phytoplankton and routing off) and the planet (routing off:
-ecology, the individual pool and phytoplankton on). Each JAX step is jitted
-once per module and warmed 24 steps, past the cold-start precipitation
-fallback and the median knife edge, then its state is carried into the port
-with ``convert``. Tolerances are relative to each leaf's largest |value|:
+Both packages build three configurations from one hermetic environment: the
+slice (ecology, phytoplankton and routing off), the planet (routing off:
+ecology, the individual pool and phytoplankton on) and the flagship planet
+(every default on, river routing included). Each JAX step is jitted once per
+module and warmed 24 steps, past the cold-start precipitation fallback and
+the median knife edge, then its state is carried into the port with
+``convert``. Tolerances are relative to each leaf's largest |value|:
 1e-10 after one float64 step, 1e-8 after a 12-step chunk.
 """
 
@@ -35,6 +36,7 @@ N_LAT, N_LON = 19, 36
 SLICE = {"QD_ECO_ENABLE": "0", "QD_PHYTO_ENABLE": "0", "QD_HYDRO_ENABLE": "0"}
 # the default planet without routing; the seed fixes the species-mode draw
 PLANET = {"QD_HYDRO_ENABLE": "0", "QD_ECO_RAND_SEED": "7"}
+FLAGSHIP = {"QD_ECO_RAND_SEED": "7"}
 REPO = Path(__file__).resolve().parents[1]
 
 
@@ -69,8 +71,39 @@ def warm_planet():
     return jm, jstep, js, tm
 
 
+@pytest.fixture(scope="module")
+def warm_flagship():
+    """The flagship planet as ``warm_planet``, with the routing clock one
+    step before an event, so the next step routes, and both day
+    accumulators six steps before the boundary."""
+    import dataclasses
+    jm, js = graft._build_world(N_LAT, N_LON, extra_env=FLAGSHIP, dtype=jnp.float64,
+                                hermetic=True)
+    assert jm.routing_static is not None
+    jstep = jax.jit(JM.make_step_fn(jm))
+    for _ in range(24):
+        js, _ = jstep(js)
+    near = jnp.asarray(jm.day_seconds - 6 * jm.dt, js.clock.accum_t_day.dtype)
+    t_ev = jnp.asarray(jm.cfg.hydrology.dt_hydro_hours * 3600.0 - jm.dt,
+                       js.routing.t_accum.dtype)
+    js = dataclasses.replace(js, clock=dataclasses.replace(js.clock, accum_t_day=near,
+                                                           phyto_accum=near),
+                             routing=dataclasses.replace(js.routing, t_accum=t_ev))
+    tm, _ = entry.build_world(N_LAT, N_LON, extra_env=FLAGSHIP, device="cpu",
+                              dtype=torch.float64)
+    return jm, jstep, js, tm
+
+
+# routing leaves that are differences of routed sums and can cancel to
+# rounding noise: held relative to the routed mass (test_torch_routing.py)
+CANCELLING = ("routing.stranded_kg", "routing.mass_error_kg", "routing_stranded_kg",
+              "routing_mass_error_kg")
+
+
 def _rel_errs(ref: dict, got: dict):
     errs = {}
+    routed = {k: float(np.max(np.abs(np.asarray(ref[k], np.float64))))
+              for k in ("routing.routed_mass_kg", "routing_routed_mass_kg") if k in ref}
     for k, r in ref.items():
         r = np.asarray(r, np.float64)
         g = np.asarray(got[k].numpy() if isinstance(got[k], torch.Tensor) else got[k],
@@ -79,6 +112,8 @@ def _rel_errs(ref: dict, got: dict):
         np.testing.assert_array_equal(np.isfinite(r), np.isfinite(g), err_msg=k)
         fin = np.isfinite(r)
         scale = max(float(np.max(np.abs(r[fin]), initial=0.0)), 1e-300)
+        if k in CANCELLING:
+            scale = max([scale] + list(routed.values()))
         errs[k] = float(np.max(np.abs(r[fin] - g[fin]), initial=0.0)) / scale
     return errs
 
@@ -222,23 +257,17 @@ def test_float32_build_keeps_float32():
                if k != "clock.step_idx" and "alpha" not in k)
 
 
-@pytest.mark.parametrize("flag", ["QD_HYDRO_ENABLE"])
-def test_build_model_refuses_unported_subsystems(flag):
-    env = dict(SLICE, **{flag: "1"})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        entry.build_world(N_LAT, N_LON, extra_env=env, device="cpu")
-
-
 def test_port_never_imports_jax():
-    """A build and a step of the planet (ecology and phytoplankton on) load
-    no JAX and no module of the JAX package."""
+    """A build and a step of the flagship planet (ecology, phytoplankton and
+    routing on) load no JAX and no module of the JAX package."""
     code = ("import sys, torch\n"
             "from qingdai_tpu_torch import entry, model as M\n"
-            "m, s = entry.build_world(19, 36, extra_env={'QD_HYDRO_ENABLE': '0'}, "
-            "device='cpu')\n"
+            "m, s = entry.build_world(19, 36, device='cpu')\n"
             "assert m.eco_static is not None and m.phyto_static is not None\n"
+            "assert m.routing_static is not None and s.routing is not None\n"
             "s, d = M.make_step_fn(m)(s)\n"
             "assert bool(torch.isfinite(d['Ts_mean'])) and bool(torch.isfinite(d['chl_mean']))\n"
+            "assert bool(torch.isfinite(d['routing_mass_error_kg']))\n"
             "print(sorted(k for k in sys.modules if k == 'jax' or k.startswith('jax.')\n"
             "             or k == '__graft_entry__' or k == 'qingdai_tpu'\n"
             "             or k.startswith('qingdai_tpu.')))\n")
@@ -273,5 +302,35 @@ def test_planet_chunk_crosses_day_boundary(warm_planet):
     ts, td = TM.make_chunk_fn(tm, 12)(ts)
     assert ts.clock.accum_t_day == 6 * tm.dt
     assert int(ts.indiv.fire_idx) == 0          # the individual pool's day ended
+    _assert_world_close(js, ts, 1e-8)
+    _assert_diags_close(jd, td, 1e-8)
+
+
+def test_flagship_one_step_matches_jax(warm_flagship):
+    """One step that fires the routing event, diags included."""
+    from qingdai_tpu_torch import routing
+    _, jstep, js, tm = warm_flagship
+    js1, jd = jstep(js)
+    before = routing.route_event.events
+    ts1, td = TM.make_step_fn(tm)(convert.world_from_numpy(js, "cpu", torch.float64))
+    assert routing.route_event.events == before + 1 and ts1.routing.t_accum == 0.0
+    assert float(js1.routing.t_accum) == 0.0
+    assert {"routing_mass_error_kg", "routing_routed_mass_kg"} <= set(td)
+    assert float(td["routing_routed_mass_kg"]) > 0.0
+    _assert_world_close(js1, ts1, 1e-10)
+    _assert_diags_close(jd, td, 1e-10)
+
+
+def test_flagship_chunk_crosses_event_and_day(warm_flagship):
+    """12 steps: the routing event at step 1, the daily blocks at step 6."""
+    _, jstep, js, tm = warm_flagship
+    ts = convert.world_from_numpy(js, "cpu", torch.float64)
+    rows = []
+    for _ in range(12):
+        js, d = jstep(js)
+        rows.append(d)
+    jd = {k: np.stack([np.asarray(r[k]) for r in rows]) for k in rows[0]}
+    ts, td = TM.make_chunk_fn(tm, 12)(ts)
+    assert ts.clock.accum_t_day == 6 * tm.dt and ts.routing.t_accum == 11 * tm.dt
     _assert_world_close(js, ts, 1e-8)
     _assert_diags_close(jd, td, 1e-8)

@@ -15,7 +15,7 @@ from qingdai_tpu import config as JC
 from qingdai_tpu import flags
 from qingdai_tpu import topography as jtopo
 from qingdai_tpu_torch import config as TC
-from qingdai_tpu_torch import convert, entry, grid, model
+from qingdai_tpu_torch import convert, entry, grid, model, run_simulation, world
 from qingdai_tpu_torch import topography as ttopo
 
 REPO = Path(__file__).resolve().parents[1]
@@ -38,6 +38,11 @@ def test_port_sources_import_no_jax():
     """No file of the port and not chip_smoke.py imports JAX, the JAX
     package or the JAX entry module, at any place in the file."""
     assert len(_port_sources()) > 30
+    names = {p.relative_to(REPO).as_posix() for p in _port_sources()}
+    assert {"qingdai_tpu_torch/io/netcdf.py", "qingdai_tpu_torch/io/ncdataset.py",
+            "qingdai_tpu_torch/io/checkpoint.py", "qingdai_tpu_torch/world.py",
+            "qingdai_tpu_torch/routing.py", "qingdai_tpu_torch/hydro_network.py",
+            "qingdai_tpu_torch/run_simulation.py"} <= names
     bad = [(p.relative_to(REPO).as_posix(), m) for p in _port_sources()
            for m in _absolute_imports(p) if m.split(".")[0] in FORBIDDEN]
     assert bad == []
@@ -99,3 +104,36 @@ def test_entry_points_default_to_the_card(monkeypatch):
         model.build_model(mdl.cfg, mask, mask * 0.3, mask * 1e-6)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         convert.world_from_numpy(st)
+
+
+def _members(module):
+    """{name: source} of the functions and classes defined in ``module``."""
+    import inspect
+    return {n: inspect.getsource(o) for n, o in vars(module).items()
+            if (inspect.isfunction(o) or inspect.isclass(o)) and o.__module__ == module.__name__}
+
+
+@pytest.mark.parametrize("name", ["hydro_network", "io.ncdataset", "topography"])
+def test_copies_equal_their_originals(name):
+    """Every function and class of the port's copies of JAX-free modules has
+    the source of the original's, the package's own name aside (a file's
+    creator attribute); the topography copy holds the generator and the
+    reader."""
+    import importlib
+    orig = _members(importlib.import_module(f"qingdai_tpu.{name}"))
+    copy = _members(importlib.import_module(f"qingdai_tpu_torch.{name}"))
+    if name == "topography":
+        orig.pop("export_topography_to_netcdf")
+    assert set(copy) == set(orig)
+    for n, src in orig.items():
+        assert copy[n].replace("qingdai_tpu_torch", "qingdai_tpu") == src, n
+
+
+def test_driver_and_cli_default_to_the_card(monkeypatch, tmp_path):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.chdir(tmp_path)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        world.QingdaiWorld()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        run_simulation.main([])
+    assert not (tmp_path / "data").exists()
