@@ -21,7 +21,12 @@ Phases, each of which raises on failure (exit code non-zero):
      launches a call; then K1's and K4's stages from their own stamps
      (``k1_anatomy``, ``k4_anatomy``), and one call of K3 and of K4
      captured in a CUDA graph, whose replay and a second eager call must
-     equal the first eager call bit for bit (``graph_replay``);
+     equal the first eager call bit for bit (``graph_replay``); then the
+     four batched forms (one launch for an ensemble's members) at B = 8:
+     each member bit-equal to its single call (float32 and float64, each
+     member's own inputs and shared ones), each within ``BATCHED_TOL`` of
+     its batched plain version, and timed beside the plain version, eight
+     single calls and one PyTorch call where one exists (``phase3_batched``);
   4. the main path, the flagship planet of ``__graft_entry__.entry()`` (the
      default configuration: 181×360, float32, ecology, the individual pool,
      phytoplankton and river routing on), built with no device argument: one
@@ -34,6 +39,14 @@ Phases, each of which raises on failure (exit code non-zero):
      planet without routing (the main path before routing was ported) and
      the path without ecology and phytoplankton (the slice of the first
      bring-up), two shorter chunks each, with their own launch counts;
+ 4b. the ensemble path (``qingdai_tpu_torch.ensemble``): the flagship planet
+     with 1, 2, 4 and 8 members, each a warm chunk and a timed day under
+     sync-debug "error" with functorch's per-member fallback an error; the
+     batched forms must launch 3, 3, 1 and 1 times a step and the single
+     forms never, every member must be finite and physical; ms/step, per
+     member, member·sim-years/hour, device launches and device ms a step
+     (a profiled routing period); member 0 of B = 8 against the single
+     planet over the same steps, within ``ENSEMBLE_F32_REL``;
   5. one float64 step of the main path on the card against the same step on
      the CPU from the same warm state, with the routing clock one step
      before an event, so the compared step routes;
@@ -46,10 +59,13 @@ Phases, each of which raises on failure (exit code non-zero):
      NetCDF library (h5py, netCDF4), so the autosave writes the sidecar and
      the JSON files and skips the NetCDF set, and the resume reads the
      sidecar alone.
-The line before the last is the kernels' JSON record; the last line is
+The line before the last is the kernels' JSON record, the four single forms
+(launches from phase 4's main path) and the four batched forms (launches
+from phase 4b's day at B = 8); the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
+import functools
 import json
 import statistics
 import subprocess
@@ -67,6 +83,7 @@ H, W = 181, 360
 STEPS_PER_DAY = 240
 EVENTS_PER_DAY = 3                          # QD_HYDRO_DT_HOURS 6 h at dt 300 s
 SHORT_STEPS = 120                           # a chunk of the two other paths
+ENSEMBLE_B = 8                              # the batched forms' members in phase 3
 N_SPECIES = 10          # PhytoConfig.n_species: K4's stack is SST + 10 tracers
 # (kernel, CUDA source, TPU kernel it replaces, launches per step on each path)
 KERNELS = [
@@ -283,6 +300,144 @@ def k2_check(dev, dtype, M, case, r, tol):
     return err, dj
 
 
+# the kernels whose one input a member may share (K1's field, K2's stack,
+# K3's k4 maps, K4's geometry); the ensemble path shares K3's k4 maps alone
+SHAREABLE = ("median_pos", "advect_bilinear", "hyper4", "ocean_substeps")
+ENSEMBLE_SHARES = ("hyper4",)
+
+
+def batched_pairs(dev, dtype, B, shared=(), n_sub=2, seed=7):
+    """The four batched forms at the main path's shapes for ``B`` members,
+    each beside its B single calls and its batched plain version (the plain
+    version under ``torch.func.vmap``, as the CPU runs it):
+    {name: (batched call, [single calls], batched plain call)}.
+    Every member has its own inputs (K1's last member has nothing positive,
+    so it takes the fallback), except the one input of each kernel named in
+    ``shared`` (``SHAREABLE``), which is given once without the member axis,
+    as ``torch.func.vmap`` leaves an unbatched input. K3 and K4 run ``n_sub``
+    substeps (two: the ping-pong buffers hold every member)."""
+    from qingdai_tpu_torch import constants as const
+    from qingdai_tpu_torch import ocean
+    from qingdai_tpu_torch.grid import make_grid
+    from qingdai_tpu_torch.kernels.advect_bilinear import (advect_bilinear_batched_cuda,
+                                                           advect_bilinear_cuda)
+    from qingdai_tpu_torch.kernels.hyper4 import hyperdiffuse_batched_cuda, hyperdiffuse_cuda
+    from qingdai_tpu_torch.kernels.median_pos import median_pos_batched_cuda, median_pos_cuda
+    from qingdai_tpu_torch.kernels.ocean_substeps import (ocean_substeps_batched_cuda,
+                                                          ocean_substeps_cuda)
+    from qingdai_tpu_torch.ops import advect, reductions, stencil
+
+    def plain_vmap(fn, in_dims, *args):
+        return torch.func.vmap(fn, in_dims=in_dims, randomness="error")(*args)
+
+    r = np.random.default_rng(seed)
+    A = const.PLANET_RADIUS
+    g = make_grid(H, W, device=dev, dtype=dtype)
+    sc = (300.0, A, g.dlat_rad, g.dlon_rad)
+    sh = {name: name in shared for name in SHAREABLE}
+
+    def one(t, name):
+        """t's member 0 alone where ``name`` shares it."""
+        return t[0].contiguous() if sh[name] else t
+
+    def at(t, name, b):
+        return t if sh[name] else t[b]
+
+    def dim(name):
+        return None if sh[name] else 0
+
+    x = on(dev, np.where(r.random((B, H, W)) < 0.6, 0.0,
+                         np.abs(r.standard_normal((B, H, W))) * 1e-5), dtype)
+    x[-1] = -x[-1] - 1.0
+    x = one(x, "median_pos")
+    F2 = one(on(dev, 280.0 + 20.0 * r.standard_normal((B, 2, H, W)), dtype), "advect_bilinear")
+    u = on(dev, np.clip(60.0 * r.standard_normal((B, H, W)), -200, 200), dtype)
+    v = on(dev, np.clip(30.0 * r.standard_normal((B, H, W)), -200, 200), dtype)
+    cos = g.coslat_cap_tiny
+    F5 = on(dev, 30.0 * r.standard_normal((B, 5, H, W)), dtype)
+    k4 = one(((0.02 * g.k4_map_unit / 300.0)[None]
+              * on(dev, r.uniform(0.25, 1.0, (B, 5, 1, 1)), dtype)).contiguous(), "hyper4")
+    ops = [k4_operands(dev, dtype, N_SPECIES, n_sub, 1, 5.0e3, seed=seed + b) for b in range(B)]
+    params = ops[0][4]
+    mom, st, forc, geo = (torch.stack([o[i] for o in ops]) for i in range(4))
+    geo = one(geo, "ocean_substeps")
+    k3 = (300.0, n_sub, g.dlat_rad, g.dlon_rad, g.coslat_cap_02, A)
+
+    singles = {
+        "median_pos": lambda b: median_pos_cuda(at(x, "median_pos", b), 1e-6),
+        "advect_bilinear": lambda b: advect_bilinear_cuda(at(F2, "advect_bilinear", b), u[b],
+                                                          v[b], *sc, cos),
+        "hyper4": lambda b: hyperdiffuse_cuda(F5[b], at(k4, "hyper4", b), *k3),
+        "ocean_substeps": lambda b: ocean_substeps_cuda(mom[b], st[b], forc[b],
+                                                        at(geo, "ocean_substeps", b), **params),
+    }
+    batched = {
+        "median_pos": lambda: median_pos_batched_cuda(x, B, 1e-6),
+        "advect_bilinear": lambda: advect_bilinear_batched_cuda(F2, u, v, *sc, cos, B),
+        "hyper4": lambda: hyperdiffuse_batched_cuda(F5, k4, *k3, B),
+        "ocean_substeps": lambda: ocean_substeps_batched_cuda(mom, st, forc, geo, B, **params),
+    }
+    plain = {
+        "median_pos": lambda: plain_vmap(reductions.masked_median_of_positive_ref,
+                                         (dim("median_pos"), None), x, 1e-6),
+        "advect_bilinear": lambda: plain_vmap(advect.advect_semilag_multi_ref,
+                                              (dim("advect_bilinear"), 0, 0) + (None,) * 5,
+                                              F2, u, v, *sc, cos),
+        "hyper4": lambda: plain_vmap(stencil.hyperdiffuse_multi_ref,
+                                     (0, dim("hyper4")) + (None,) * 6, F5, k4, *k3),
+        "ocean_substeps": lambda: plain_vmap(
+            lambda m_, s_, f_, g_: ocean.ocean_substeps_plain(m_, s_, f_, g_, **params),
+            (0, 0, 0, dim("ocean_substeps")), mom, st, forc, geo),
+    }
+    def k2_library():
+        dj, di = advect.departure_indices((H, W), u, v, *sc, cos, dtype)
+        return grid_sample_call(F2 if F2.dim() == 4 else F2.expand(B, 2, H, W), dj, di)
+
+    return {name: (batched[name], [functools.partial(singles[name], b) for b in range(B)],
+                   plain[name], k2_library if name == "advect_bilinear" else None)
+            for name in SHAREABLE}
+
+
+def batched_equal(pairs, label=""):
+    """Each batched form against its single calls, bit for bit."""
+    for name, (batched, singles, _, _) in pairs.items():
+        got = batched()
+        for b, single in enumerate(singles):
+            ref = single()
+            same = (all(torch.equal(x[b], y) for x, y in zip(got, ref)) if isinstance(ref, tuple)
+                    else torch.equal(got[b], ref))
+            if not same:
+                raise AssertionError(f"{name} batched {label}: member {b} differs from its "
+                                     "single call")
+
+
+def kernel_work(name, n_members=1, shared=()):
+    """(bytes, float operations) of one call at the main path's shapes in
+    float32 for ``n_members`` members: each input read once, each output
+    written once, an input the members share (K2's and K3's cos maps, and
+    the kernels named in ``shared``: K3's k4 maps) once for all."""
+    HW, f4, B = H * W, 4, n_members
+    n_st = 1 + N_SPECIES
+    if name == "median_pos":
+        return B * (HW + 1) * f4, B * 2 * HW
+    if name == "advect_bilinear":               # M = 2: stack in and out, u, v; cos
+        return (B * (2 * 2 + 2) + 1) * HW * f4, B * (19 + 2 * 7) * HW
+    if name == "hyper4":                        # M = 5: F in and out, k4; cos
+        k4 = 5 * (1 if name in shared else B)
+        return (B * 5 * 2 + k4 + 1) * HW * f4, B * 5 * 70 * HW
+    return (B * (3 + n_st + 3 + 12 + 3 + n_st) * HW * f4,
+            B * (60 + 3 * 70 + 7 * n_st + 60) * HW)
+
+
+def bound(nbytes, nops, rate) -> dict:
+    """The least time of a call at the published peaks, which of the two
+    bounds it, and the bytes' time at the measured copy rate."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, nops / PEAK_F32 * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bound_copy_ms": nbytes / rate * 1e3}
+
+
 def k1_stage_names(slots):
     """Names of the stages between K1's ``slots`` trace stamps."""
     passes = (slots - 2) // 2
@@ -436,17 +591,6 @@ def phase3_kernels(dev, label, rate):
         "ocean_substeps": (lambda: ocean_substeps_cuda(mom, st, forc, geo, **params),
                            lambda: ocean.ocean_substeps_plain(mom, st, forc, geo, **params)),
     }
-    HW, f4 = H * W, 4
-    n_st = st.shape[0]
-    # bytes each function must move (inputs read once, outputs written once)
-    # and the float operations it does, at these shapes
-    work = {
-        "median_pos": (HW * f4 + f4, 2 * HW),
-        "advect_bilinear": ((2 * 2 + 3) * HW * f4, (19 + 2 * 7) * HW),
-        "hyper4": ((5 * 2 + 1 + 5) * HW * f4, 5 * 70 * HW),
-        "ocean_substeps": ((3 + n_st + 3 + 12 + 3 + n_st) * HW * f4,
-                           (60 + 3 * 70 + 7 * n_st + 60) * HW),
-    }
     # one PyTorch call computing the same function, where there is one
     library = {"advect_bilinear": grid_sample_call(F2, dj, di)}
     for name, (kern, plain) in pairs.items():
@@ -456,12 +600,9 @@ def phase3_kernels(dev, label, rate):
                                    device_ms(kern, what=f"kernel {name}"),
                                    device_ms(plain, what=f"{name}'s plain version"))
         e1, f1, f2, e2 = time_ms(plain), time_ms(kern), time_ms(kern), time_ms(plain)
-        nbytes, nops = work[name]
-        t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, nops / PEAK_F32 * 1e3
+        nbytes, nops = kernel_work(name)
         rec[name].update(ms=statistics.median([k1, k2]), plain_ms=statistics.median([p1, p2]),
-                         bound_ms=max(t_bytes, t_ops),
-                         bound_by="bytes" if t_bytes >= t_ops else "operations",
-                         bound_copy_ms=nbytes / rate * 1e3, library_ms=None)
+                         **bound(nbytes, nops, rate), library_ms=None)
         lib = ""
         if name in library:
             rec[name]["library_ms"] = device_ms(library[name],
@@ -477,12 +618,74 @@ def phase3_kernels(dev, label, rate):
               f"{f1:.4f}/{f2:.4f}, plain {e1:.4f}/{e2:.4f}; bound {rec[name]['bound_ms']:.5f} ms "
               f"({rec[name]['bound_by']}: {nbytes} B, {nops} flop), "
               f"{rec[name]['bound_copy_ms']:.5f} ms at the measured copy rate [{label}]")
+    phase3_batched(dev, label, rate, rec)
     k1_anatomy(x, rec["median_pos"]["ms"], label)
     k4_anatomy(mom, st, forc, geo, params, rec["ocean_substeps"]["ms"], label)
     graph_replay(pairs["hyper4"][0], pairs["ocean_substeps"][0])
     print(f"torch.profiler: {len(PROFILE_LOG['empty'])} of {PROFILE_LOG['taken']} profiles held "
           f"no device event and were taken again: {PROFILE_LOG['empty']}")
     return rec
+
+
+# the batched forms against their batched plain versions (float32), each
+# output's max|err| within this share of the plain output's max|value|
+# (K4 per plane): the single forms' stated tolerances, on that scale
+BATCHED_TOL = {"median_pos": 0.0, "advect_bilinear": 1e-6, "hyper4": 1e-5,
+               "ocean_substeps": 1e-4}
+
+
+def phase3_batched(dev, label, rate, rec):
+    """The batched forms at B = ``ENSEMBLE_B``: bit-equal to B single calls
+    in float32 and float64, with each member's own inputs and with the
+    shareable ones shared; then on the ensemble path's shapes in float32
+    (K3's k4 maps shared, one substep) against the batched plain version,
+    and timed: device ms a call (plain, kernel, B single calls, kernel,
+    plain), a member, and one PyTorch call where one exists."""
+    for dtype in (torch.float32, torch.float64):
+        for shared in ((), SHAREABLE):
+            batched_equal(batched_pairs(dev, dtype, ENSEMBLE_B, shared),
+                          f"{dtype} B={ENSEMBLE_B} shared={shared}")
+    print(f"batched forms at B={ENSEMBLE_B}: each member bit-equal to its single call, float32 "
+          "and float64, own and shared inputs, K3 and K4 two substeps")
+    for name, (batched, singles, plain, library) in batched_pairs(
+            dev, torch.float32, ENSEMBLE_B, ENSEMBLE_SHARES, n_sub=1).items():
+        bname = name + "_batched"
+        got, ref = batched(), plain()
+        pairs = zip(got, ref) if isinstance(ref, tuple) else [(got, ref)]
+        err = 0.0
+        for g_, r_ in pairs:
+            for b in range(ENSEMBLE_B):
+                planes = [(g_[b], r_[b])] if r_.dim() <= 3 else list(zip(g_[b], r_[b]))
+                for gp, rp in planes:
+                    e = float((gp - rp).abs().max())
+                    if not e <= BATCHED_TOL[name] * float(rp.abs().max()):
+                        raise AssertionError(f"{bname}: member {b} max|err| {e} against the "
+                                             "batched plain version")
+                    err = max(err, e)
+
+        def all_singles(singles=singles):
+            return [f() for f in singles]
+
+        p1, (k1, n_dev), s1, k2, p2 = (
+            device_ms(plain, what=f"{bname}'s plain version"),
+            device_profile(batched, what=f"kernel {bname}"),
+            device_ms(all_singles, what=f"{ENSEMBLE_B} single calls of {name}"),
+            device_ms(batched, what=f"kernel {bname}"),
+            device_ms(plain, what=f"{bname}'s plain version"))
+        ms = statistics.median([k1, k2])
+        nbytes, nops = kernel_work(name, ENSEMBLE_B, ENSEMBLE_SHARES)
+        rec[bname] = {"max_abs_err": err, "ms": ms, "plain_ms": statistics.median([p1, p2]),
+                      **bound(nbytes, nops, rate), "library_ms": None, "singles_ms": s1}
+        lib = ""
+        if library is not None:
+            rec[bname]["library_ms"] = device_ms(library(), what=f"{bname}'s PyTorch call")
+            lib = f", one PyTorch call {rec[bname]['library_ms']:.5f} ms"
+        print(f"time {bname} (B={ENSEMBLE_B}, the ensemble path's shapes, float32), device ms "
+              f"per call: kernel {k1:.5f}/{k2:.5f} ({n_dev:g} device launches a call), "
+              f"{ms / ENSEMBLE_B:.5f} a member; {ENSEMBLE_B} single calls {s1:.5f} "
+              f"({s1 / ms:.2f}x the batched call); plain (vmapped) {p1:.5f}/{p2:.5f}{lib}; "
+              f"max|err| against it {err:.3e}; bound {rec[bname]['bound_ms']:.5f} ms "
+              f"({rec[bname]['bound_by']}: {nbytes} B, {nops} flop) [{label}]")
 
 
 def k4_anatomy(mom, st, forc, geo, params, kernel_ms, label, reps=50):
@@ -533,24 +736,30 @@ def graph_replay(*calls):
 def grid_sample_call(F, dep_j, dep_i):
     """F.grid_sample on a wrap-padded field: the same bilinear periodic
     interpolation as K2 for departure points folded into [0, H) × [0, W).
-    Returns the timed call after checking it against the plain version."""
+    F [M, H, W] with points [H, W], or a batch of members, F [B, M, H, W]
+    with points [B, H, W] (one call for all). Returns the timed call after
+    checking it against the plain version."""
     import torch.nn.functional as Fn
     from qingdai_tpu_torch.ops import advect
 
-    M, h, w = F.shape
-    padded = torch.cat([F, F[:, :1]], dim=1)
-    padded = torch.cat([padded, padded[:, :, :1]], dim=2)[None]      # [1, M, h+1, w+1]
+    if F.dim() == 3:
+        F, dep_j, dep_i = F[None], dep_j[None], dep_i[None]
+    h, w = F.shape[-2:]
+    padded = torch.cat([F, F[:, :, :1]], dim=2)
+    padded = torch.cat([padded, padded[:, :, :, :1]], dim=3)          # [B, M, h+1, w+1]
     jj = torch.remainder(dep_j, h)
     ii = torch.remainder(dep_i, w)
-    grid = torch.stack([2.0 * ii / w - 1.0, 2.0 * jj / h - 1.0], dim=-1)[None]
+    grid = torch.stack([2.0 * ii / w - 1.0, 2.0 * jj / h - 1.0], dim=-1)
 
     def call():
         return Fn.grid_sample(padded, grid, mode="bilinear", padding_mode="border",
                               align_corners=True)
 
-    diff = float((call()[0] - advect.bilinear_wrap_gather_multi(F, dep_j, dep_i)).abs().max())
-    print(f"grid_sample against the plain K2: max|diff| {diff:.3e} (max|F| "
-          f"{float(F.abs().max()):.1f})")
+    got = call()
+    diff = max(float((got[b] - advect.bilinear_wrap_gather_multi(F[b], dep_j[b], dep_i[b]))
+                     .abs().max()) for b in range(F.shape[0]))
+    print(f"grid_sample against the plain K2 ({F.shape[0]} member(s)): max|diff| {diff:.3e} "
+          f"(max|F| {float(F.abs().max()):.1f})")
     return call
 
 
@@ -693,10 +902,19 @@ def routing_event_check(mdl, st, label):
           f"launches ({rs.n_levels} levels, {len(rs.rounds)} rounds) [{label}]")
 
 
+def path_counts(steps, form=""):
+    """Each wrapper's launches over ``steps`` steps of a path: the main
+    path's 3, 3, 1 and 1 a step of the forms named ``form`` ("" the single
+    forms, "_batched" the batched ones), none of the others."""
+    other = "_batched" if form == "" else ""
+    want = {name + form: per_step * steps for name, _, _, per_step in KERNELS}
+    return {**want, **{name + other: 0 for name, *_ in KERNELS}}
+
+
 def phase4_paths(label):
     from qingdai_tpu_torch.physics.orbital import T_PLANET
 
-    want_day = {name: per_step * STEPS_PER_DAY for name, _, _, per_step in KERNELS}
+    want_day = path_counts(STEPS_PER_DAY)
     # the main path: two planetary days, the second timed
     mdl, st, diags, counts, daily, events, ms_step = run_path(MAIN, STEPS_PER_DAY, 2, label,
                                                               "main path")
@@ -729,7 +947,7 @@ def phase4_paths(label):
 
     # the planet without routing and the slice: two shorter chunks each,
     # the second timed
-    want = {name: per_step * SHORT_STEPS for name, _, _, per_step in KERNELS}
+    want = path_counts(SHORT_STEPS)
     for env, tag in ((PLANET, "planet without routing"), (SLICE, "slice")):
         mdl, st, diags, counts, _, events, ms = run_path(env, SHORT_STEPS, 2, label, tag)
         if any(c != want for c in counts) or any(events):
@@ -741,6 +959,151 @@ def phase4_paths(label):
               f"{ms:.4f} ms/step, {syh:.3f} sim-years/hour [{label}]")
         del mdl, st, diags
     return flagship, main_counts
+
+
+ENSEMBLE_MEMBERS = (1, 2, 4, 8)
+ENSEMBLE_WARM = 24                          # steps of the warm chunk
+ENSEMBLE_WINDOW = 72                        # profiled steps: one routing period
+FALLBACK = "There is a performance drop because we have not yet implemented the batching rule"
+
+
+def profile_steps(fn, steps, what):
+    """(device ms, device launches) per step of ``fn()``, which runs
+    ``steps`` steps, under torch.profiler (device activity only), after the
+    profiler's start-up wait; an empty profile is taken again."""
+    for attempt in range(1, PROFILE_TRIES + 1):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            time.sleep(PROFILE_WAIT_S)
+            fn()
+            torch.cuda.synchronize()
+        PROFILE_LOG["taken"] += 1
+        dev = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        us = sum(e.time_range.elapsed_us() for e in dev)
+        if us > 0.0:
+            return us / steps / 1e3, len(dev) / steps
+        PROFILE_LOG["empty"].append((what, 0, 0))
+        print(f"torch.profiler: no device event in profile {attempt} of {what}", flush=True)
+    raise AssertionError(f"the profiler saw no device time in {PROFILE_TRIES} profiles of {what}")
+
+
+def phase4b_ensemble(label):
+    """The ensemble path: the flagship planet at 181×360 float32 with B = 1,
+    2, 4 and 8 members (``ensemble.init_ensemble``, perturb_k 0.01 K, as
+    ``run_ensemble`` starts them), each one warm chunk and a timed day (every
+    daily block, three routing events) under sync-debug "error" with
+    functorch's per-member fallback an error; the launch counts, the daily
+    blocks and the routing events of the day; every member finite and within
+    the physical gates; then a profiled window of one routing period. Member
+    0 of B = 8 against the single planet over the same steps, within
+    ``ENSEMBLE_F32_REL``, and as its control members 1..7, each of which
+    must lie beyond that bound. Returns (the timed day's launch counts at B = 8, a
+    row of numbers per B)."""
+    import warnings
+
+    from qingdai_tpu_torch import ensemble as E
+    from qingdai_tpu_torch import entry, kernels, routing
+    from qingdai_tpu_torch import model as M
+    from qingdai_tpu_torch.physics.orbital import T_PLANET
+
+    t0 = time.perf_counter()
+    mdl, _ = entry.build_world(H, W, extra_env=MAIN)
+    print(f"ensemble path built in {time.perf_counter() - t0:.2f} s: the flagship planet "
+          f"{H}x{W} float32 on {mdl.device}")
+    want = path_counts(STEPS_PER_DAY, "_batched")
+    rows, counts8, members8 = {}, None, None
+    warm, day = (E.make_ensemble_chunk_fn(mdl, n) for n in (ENSEMBLE_WARM, STEPS_PER_DAY))
+    window = E.make_ensemble_chunk_fn(mdl, ENSEMBLE_WINDOW)
+    with warnings.catch_warnings():
+        warnings.filterwarnings("error", message=FALLBACK)
+        for B in ENSEMBLE_MEMBERS:
+            ens, gens = E.init_ensemble(mdl, B)
+            watch = DailyCounts()
+            try:
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    ens, _ = warm(ens, gens)
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+                torch.cuda.synchronize()
+                watch.take()
+                kernels.reset_launch_counts()
+                routing.route_event.events = 0
+                a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    a.record()
+                    ens, diags = day(ens, gens)
+                    b.record()
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+                counts, daily, events = (kernels.launch_counts(), watch.take(),
+                                         routing.route_event.events)
+            finally:
+                watch.restore()
+            b.synchronize()
+            ms = a.elapsed_time(b) / STEPS_PER_DAY
+            if counts != want:
+                raise AssertionError(f"ensemble B={B}: launch counts of the day {counts} != "
+                                     f"{want}")
+            if daily != {"eco_step_daily": 1, "indiv_step_daily": 1, "phyto_step_daily": 1}:
+                raise AssertionError(f"ensemble B={B}: daily blocks {daily}")
+            if events != EVENTS_PER_DAY:
+                raise AssertionError(f"ensemble B={B}: {events} routing events in the day")
+            for m in range(B):
+                d = {k: v[m] for k, v in diags.items()}
+                check_run(E.member_state(ens, m), d, STEPS_PER_DAY, eco=True)
+                check_routing(d)
+            if B == ENSEMBLE_MEMBERS[-1]:
+                counts8, members8 = counts, [E.member_state(ens, m) for m in range(B)]
+                spread = E.spread_diagnostics(diags)
+            dev_ms, n_dev = profile_steps(lambda: window(ens, gens), ENSEMBLE_WINDOW,
+                                          f"the ensemble at B={B}")
+            syh = 3600.0 / (ms / 1000.0) * mdl.dt / T_PLANET
+            rows[B] = {"ms_step": ms, "ms_member_step": ms / B, "member_sim_years_per_hour":
+                       B * syh, "launches_step": n_dev, "device_ms_step": dev_ms,
+                       "idle": 1.0 - dev_ms / ms}
+            print(f"ensemble B={B} 181x360 f32: {ms:.4f} ms/step, {ms / B:.4f} ms a member-step, "
+                  f"{B * syh:.3f} member-sim-years/hour; {n_dev:.1f} device launches and "
+                  f"{dev_ms:.4f} device ms a step ({ENSEMBLE_WINDOW}-step window with one "
+                  f"routing event), idle {1.0 - dev_ms / ms:.3f}; day: launches {counts}, "
+                  f"daily blocks {daily}, {events} routing events; every member finite and "
+                  f"physical (Ts_mean {float(diags['Ts_mean'][:, -1].min()):.3f}.."
+                  f"{float(diags['Ts_mean'][:, -1].max()):.3f} K) [{label}]", flush=True)
+            del ens, diags
+    print("ensemble B=8 spread at the day's last step: " + ", ".join(
+        f"{k} {spread[k + '_spread']:.4e}" for k in ("Ts_mean", "TOA_net", "P_mean", "u_max")))
+
+    # member 0 against the single planet over the same steps
+    st = M.init_world(mdl)
+    for n in (ENSEMBLE_WARM, STEPS_PER_DAY):
+        st, _ = M.make_chunk_fn(mdl, n)(st)
+    worst = []
+    for m in members8:
+        errs = member_errors(st, m)
+        worst.append(max(errs, key=errs.get))
+        worst[-1] = (worst[-1], errs[worst[-1]])
+    same = same_state(st, members8[0])
+    print(f"ensemble B=8 members against the single planet over the same "
+          f"{ENSEMBLE_WARM + STEPS_PER_DAY} steps, max relative difference without the pole "
+          f"rows: member 0 {worst[0][1]:.3e} ({worst[0][0]}; bit-equal: {same}); the control, "
+          f"members 1..{len(worst) - 1}: " + ", ".join(f"{e:.3e} ({k})" for k, e in worst[1:])
+          + f"; bound {ENSEMBLE_F32_REL}")
+    if not worst[0][1] <= ENSEMBLE_F32_REL:
+        raise AssertionError(f"ensemble member 0 differs from the single planet: "
+                             f"{worst[0][0]} {worst[0][1]} > {ENSEMBLE_F32_REL}")
+    if not min(e for _, e in worst[1:]) > ENSEMBLE_F32_REL:
+        raise AssertionError("a perturbed member lies within ENSEMBLE_F32_REL of the single "
+                             "planet: the bound cannot tell member 0 from another member")
+    return counts8, rows
+
+
+def same_state(a, b) -> bool:
+    """Every leaf of two single-planet states equal bit for bit."""
+    from qingdai_tpu_torch.convert import world_to_numpy
+
+    fa, fb = world_to_numpy(a), world_to_numpy(b)
+    return set(fa) == set(fb) and all(same_bits(fa[k], fb[k]) for k in fa)
 
 
 def _step_diffs(st, dtype, dev):
@@ -801,6 +1164,43 @@ def phase5_cpu_reference(st, dev):
     routing_worst = max(v for k, v in full.items() if "routing" in k)
     print(f"phase 5: float64 routing leaves and diags, card vs CPU: {routing_worst:.2e}")
     return worst
+
+
+# member 0 of an ensemble against the single planet in float32 over the same
+# steps: each leaf within this share of its largest |value|, the pole rows
+# left out (phase 5). Batched reductions may add in another order than the
+# single planet's, an ulp apart, and the step's dynamics grow that. Every
+# perturbed member (0.01 K) must lie beyond it, so that the check tells
+# member 0 from its neighbours; the CPU tests hold the same bound
+# (tests/test_torch_ensemble.py).
+ENSEMBLE_F32_REL = 1e-5
+
+
+def member_errors(ref, got) -> dict:
+    """max|ref − got| / max|ref| per leaf of two single-planet states, over
+    the finite entries (which must sit in the same places) and without the
+    pole rows; the routing leaves that are differences of routed sums
+    relative to the routed mass."""
+    from qingdai_tpu_torch.convert import world_to_numpy
+
+    grid = tuple(ref.atmos.T_s.shape)
+    a, b = world_to_numpy(ref), world_to_numpy(got)
+    routed = (float(np.max(np.abs(a["routing.routed_mass_kg"])))
+              if "routing.routed_mass_kg" in a else 0.0)
+    errs = {}
+    for k in a:
+        r, g = np.asarray(a[k], np.float64), np.asarray(b[k], np.float64)
+        if r.shape[-2:] == grid:
+            r, g = r[..., 1:-1, :], g[..., 1:-1, :]
+        fin = np.isfinite(r)
+        if not np.array_equal(fin, np.isfinite(g)):
+            errs[k] = float("inf")
+            continue
+        scale = max(float(np.max(np.abs(r[fin]), initial=0.0)), 1e-30)
+        if "stranded" in k or "mass_error" in k:
+            scale = max(scale, routed)
+        errs[k] = float(np.max(np.abs(r[fin] - g[fin]), initial=0.0)) / scale
+    return errs
 
 
 def same_bits(a, b) -> bool:
@@ -913,15 +1313,17 @@ def main():
 
     rec = phase3_kernels(dev, label, rate)
     st, counts = phase4_paths(label)
+    ens_counts, _ = phase4b_ensemble(label)
+    counts.update({k: v for k, v in ens_counts.items() if k.endswith("_batched")})
     worst = phase5_cpu_reference(st, dev)
     print(f"phase 5: card and CPU float64 steps agree to {worst:.2e} relative")
     del st
     phase6_world(label)
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    kernels_line = [{"name": name, "route": "cuda", "source": src, "replaces": rep,
-                     "launches": counts[name], **{k: rec[name][k] for k in keys}}
-                    for name, src, rep, _ in KERNELS]
+    kernels_line = [{"name": name + form, "route": "cuda", "source": src, "replaces": rep,
+                     "launches": counts[name + form], **{k: rec[name + form][k] for k in keys}}
+                    for form in ("", "_batched") for name, src, rep, _ in KERNELS]
     print(f"card: {label}")
     print(json.dumps({"kernels": kernels_line}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

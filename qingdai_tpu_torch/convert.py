@@ -69,6 +69,41 @@ def world_from_numpy(jax_obj, device="cuda", dtype=torch.float64):
     return cls(**kw)
 
 
+def ensemble_from_numpy(jax_ens, device="cuda", dtype=torch.float64):
+    """Convert a JAX ensemble state (a ``WorldState`` with a leading member
+    axis on every leaf) into the port's (``ensemble.py``): every per-member
+    leaf keeps its member axis; each shared clock leaf
+    (``ensemble.SHARED_LEAVES``) must be equal across members and becomes
+    member 0's, a host number where the port keeps one. The ``rng`` keys are
+    dropped (each member's generator is the port's)."""
+    from .ensemble import SHARED_LEAVES
+
+    device = grid_mod.resolve_device(device)
+    groups = {}
+    for g in dataclasses.fields(state_mod.WorldState):
+        group = getattr(jax_ens, g.name)
+        if group is None:
+            groups[g.name] = None
+            continue
+        cls = _PORT_CLASSES[type(group).__name__]
+        kw = {}
+        for f in dataclasses.fields(cls):
+            a = np.asarray(getattr(group, f.name))
+            if (g.name, f.name) not in SHARED_LEAVES:
+                kw[f.name] = _leaf(a, device, dtype)
+                continue
+            if not np.array_equal(a, np.broadcast_to(a[:1], a.shape)):
+                raise ValueError(f"the shared leaf {g.name}.{f.name} differs across members")
+            if f.name in _HOST_INT:
+                kw[f.name] = int(a[0])
+            elif f.name in _HOST_FLOAT:
+                kw[f.name] = float(a[0])
+            else:
+                kw[f.name] = _leaf(a[0], device, dtype)
+        groups[g.name] = cls(**kw)
+    return state_mod.WorldState(**groups)
+
+
 def world_to_numpy(world) -> dict:
     """Flatten a port ``WorldState`` (or a JAX one, read by the port's field
     names) into {"group.field": ndarray or number}; absent groups are

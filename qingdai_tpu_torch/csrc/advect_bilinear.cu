@@ -73,16 +73,28 @@ template <typename T>
 __device__ __forceinline__ T ld(const T* p) { return __ldg(p); }
 
 // MS = 1 or 2: the stack height, specialised; MS = 0: any M (a loop).
-template <typename T, int MS>
+// kMembers false: one member, with none of the member offsets (a single
+// call's chain stays as short as it was).
+template <typename T, int MS, bool kMembers>
 __global__ void __launch_bounds__(kBX * kBY)
 advect_bilinear_kernel(const T* __restrict__ f, const T* __restrict__ u,
                        const T* __restrict__ v, const T* __restrict__ cosl,
                        T* __restrict__ out, T* __restrict__ dep_out, int M, int H, int W,
+                       long long f_bs, long long u_bs, long long v_bs, long long c_bs,
                        T dt, T a, T inv_a, T inv_dlat, T inv_dlon) {
   const int i = blockIdx.x * kBX + threadIdx.x;
   const int j = blockIdx.y * kBY + threadIdx.y;
   if (i >= W || j >= H) return;
   const int HW = H * W;
+  if (kMembers) {
+    const long long b = blockIdx.z;
+    f += b * f_bs;
+    u += b * u_bs;
+    v += b * v_bs;
+    cosl += b * c_bs;
+    out += b * M * (long long)HW;
+    if (dep_out != nullptr) dep_out += b * 2 * (long long)HW;
+  }
   const int p = j * W + i;
   const T dlam = (ld(u + p) * dt) / (a * ld(cosl + p));
   const T dphi = (ld(v + p) * dt) * inv_a;
@@ -123,43 +135,54 @@ advect_bilinear_kernel(const T* __restrict__ f, const T* __restrict__ u,
   }
 }
 
+// one launch of the instantiation for M and kMembers
+template <typename T, bool kMembers>
+void launch_kernel(dim3 grid, cudaStream_t s, const T* f, const T* u, const T* v, const T* c,
+                   T* out, T* dep, int M, int H, int W, long long f_bs, long long u_bs,
+                   long long v_bs, long long c_bs, T dt, T a, T inv_a, T inv_dlat,
+                   T inv_dlon) {
+  const dim3 block(kBX, kBY);
+  if (M == 1)
+    advect_bilinear_kernel<T, 1, kMembers><<<grid, block, 0, s>>>(
+        f, u, v, c, out, dep, M, H, W, f_bs, u_bs, v_bs, c_bs, dt, a, inv_a, inv_dlat, inv_dlon);
+  else if (M == 2)
+    advect_bilinear_kernel<T, 2, kMembers><<<grid, block, 0, s>>>(
+        f, u, v, c, out, dep, M, H, W, f_bs, u_bs, v_bs, c_bs, dt, a, inv_a, inv_dlat, inv_dlon);
+  else
+    advect_bilinear_kernel<T, 0, kMembers><<<grid, block, 0, s>>>(
+        f, u, v, c, out, dep, M, H, W, f_bs, u_bs, v_bs, c_bs, dt, a, inv_a, inv_dlat, inv_dlon);
+}
+
 template <typename T>
 int launch(const void* f, const void* u, const void* v, const void* cosl, void* out,
-           void* dep_out, int M, int H, int W, double dt, double a, double dlat,
+           void* dep_out, int n_members, long long f_bs, long long u_bs, long long v_bs,
+           long long c_bs, int M, int H, int W, double dt, double a, double dlat,
            double dlon, void* stream) {
+  if (n_members < 1 || n_members > 65535) return (int)cudaErrorInvalidValue;
   // the scalars in T, and the reciprocals PyTorch multiplies by, rounded in T
   const T dt_t = (T)dt, a_t = (T)a, dlat_t = (T)dlat, dlon_t = (T)dlon;
   const T inv_a = T(1) / a_t, inv_dlat = T(1) / dlat_t, inv_dlon = T(1) / dlon_t;
-  const dim3 block(kBX, kBY);
-  const dim3 grid((W + kBX - 1) / kBX, (H + kBY - 1) / kBY);
-  cudaStream_t s = (cudaStream_t)stream;
-  const T* ff = (const T*)f;
-  const T *uu = (const T*)u, *vv = (const T*)v, *cc = (const T*)cosl;
-  T *oo = (T*)out, *dd = (T*)dep_out;
-  if (M == 1)
-    advect_bilinear_kernel<T, 1><<<grid, block, 0, s>>>(ff, uu, vv, cc, oo, dd, M, H, W,
-                                                         dt_t, a_t, inv_a, inv_dlat, inv_dlon);
-  else if (M == 2)
-    advect_bilinear_kernel<T, 2><<<grid, block, 0, s>>>(ff, uu, vv, cc, oo, dd, M, H, W,
-                                                         dt_t, a_t, inv_a, inv_dlat, inv_dlon);
-  else
-    advect_bilinear_kernel<T, 0><<<grid, block, 0, s>>>(ff, uu, vv, cc, oo, dd, M, H, W,
-                                                         dt_t, a_t, inv_a, inv_dlat, inv_dlon);
+  const dim3 grid((W + kBX - 1) / kBX, (H + kBY - 1) / kBY, n_members);
+  auto run = n_members > 1 ? launch_kernel<T, true> : launch_kernel<T, false>;
+  run(grid, (cudaStream_t)stream, (const T*)f, (const T*)u, (const T*)v, (const T*)cosl,
+      (T*)out, (T*)dep_out, M, H, W, f_bs, u_bs, v_bs, c_bs, dt_t, a_t, inv_a, inv_dlat,
+      inv_dlon);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-extern "C" int qd_advect_bilinear_f32(const void* f, const void* u, const void* v,
-                                      const void* cosl, void* out, void* dep_out, int M,
-                                      int H, int W, double dt, double a, double dlat,
-                                      double dlon, void* stream) {
-  return launch<float>(f, u, v, cosl, out, dep_out, M, H, W, dt, a, dlat, dlon, stream);
-}
+// n_members members: member b's stack at f + b * f_bs, winds at u + b * u_bs
+// and v + b * v_bs, cos map at cosl + b * c_bs; out is [n_members, M, H, W]
+// and dep_out [n_members, 2, H, W]
+#define QD_ADVECT_LAUNCHER(NAME, T)                                                          \
+  extern "C" int NAME(const void* f, const void* u, const void* v, const void* cosl,        \
+                      void* out, void* dep_out, int n_members, long long f_bs,             \
+                      long long u_bs, long long v_bs, long long c_bs, int M, int H, int W, \
+                      double dt, double a, double dlat, double dlon, void* stream) {       \
+    return launch<T>(f, u, v, cosl, out, dep_out, n_members, f_bs, u_bs, v_bs, c_bs, M, H,  \
+                     W, dt, a, dlat, dlon, stream);                                         \
+  }
 
-extern "C" int qd_advect_bilinear_f64(const void* f, const void* u, const void* v,
-                                      const void* cosl, void* out, void* dep_out, int M,
-                                      int H, int W, double dt, double a, double dlat,
-                                      double dlon, void* stream) {
-  return launch<double>(f, u, v, cosl, out, dep_out, M, H, W, dt, a, dlat, dlon, stream);
-}
+QD_ADVECT_LAUNCHER(qd_advect_bilinear_f32, float)
+QD_ADVECT_LAUNCHER(qd_advect_bilinear_f64, double)

@@ -20,6 +20,13 @@
 // written: 12 B a cell in float) and, at the main path's 5 x 181 x 360
 // (1.3 MB), the latency of one launch whose blocks each load a tile, pass
 // four block barriers and store. The halo reads 1440 cells for 1024 owned.
+//
+// The batched form (an ensemble's members, one launch a substep): grid z runs
+// over the B x M planes of all members, plane z being field z % M of member
+// z / M, which reads its F, k4 and cos map at the member's multiple of their
+// member strides (a stride of 0: one tensor shared by every member, such as
+// the static k4 maps, read without a copy). A plane's arithmetic is the
+// single launch's, so each member's result is the same bits.
 
 #include <cuda_runtime.h>
 
@@ -32,12 +39,23 @@ constexpr int kHaloR = 4, kHaloC = 2;  // one del^4 substep; held by tests/test_
 constexpr int kNR = kTH + 2 * kHaloR, kNC = kTW + 2 * kHaloC, kPlane = kNR * kNC;
 constexpr int kBY = 10;  // block (kNC, kBY): a thread takes one column and every kBY-th row
 
-template <typename T>
+// kMembers false: one member, with none of the member arithmetic (a single
+// call's blocks start as they did)
+template <typename T, bool kMembers>
 __global__ void __launch_bounds__(kNC * kBY)
 hyper4_tile_kernel(const T* __restrict__ F, const T* __restrict__ k4, const T* __restrict__ cosm,
-                   T* __restrict__ out, int H, int W, qd::Inv<T> inv, T sub_dt) {
+                   T* __restrict__ out, int M, int H, int W, long long F_bs, long long k4_bs,
+                   long long c_bs, qd::Inv<T> inv, T sub_dt) {
   __shared__ T sX[kPlane], sG[kPlane], sL[kPlane], sC[kPlane];
-  const int plane = blockIdx.z * H * W;
+  // plane z: field m of member b; `plane` offsets F, k4 and out to it
+  const int b = kMembers ? (int)blockIdx.z / M : 0;
+  const int plane = ((int)blockIdx.z - b * M) * H * W;
+  if (kMembers) {
+    F += b * F_bs;
+    k4 += b * k4_bs;
+    cosm += b * c_bs;
+    out += b * M * (long long)(H * W);
+  }
   const int j0 = blockIdx.y * kTH, i0 = blockIdx.x * kTW;
   const int oh = min(kTH, H - j0), ow = min(kTW, W - i0);
   const int r0 = max(0, j0 - kHaloR), nr = min(H, j0 + oh + kHaloR) - r0, nc = ow + 2 * kHaloC;
@@ -59,21 +77,26 @@ hyper4_tile_kernel(const T* __restrict__ F, const T* __restrict__ k4, const T* _
 }
 
 template <typename T>
-int run(const void* F, const void* k4, const void* cosm, void* out, void* tmp, int M, int H,
-        int W, int n_sub, double dlat, double dlon, double a, double sub_dt, void* stream) {
+int run(const void* F, const void* k4, const void* cosm, void* out, void* tmp, int n_members,
+        long long F_bs, long long k4_bs, long long c_bs, int M, int H, int W, int n_sub,
+        double dlat, double dlon, double a, double sub_dt, void* stream) {
   if (n_sub > 1 && tmp == nullptr) return (int)cudaErrorInvalidValue;
-  const dim3 grid((W + kTW - 1) / kTW, (H + kTH - 1) / kTH, M);
+  if (n_members < 1 || (long long)n_members * M > 65535) return (int)cudaErrorInvalidValue;
+  const dim3 grid((W + kTW - 1) / kTW, (H + kTH - 1) / kTH, n_members * M);
   const qd::Inv<T> inv = qd::inverses<T>(dlat, dlon, a);
   const T tsub = T(sub_dt);
   const T* src = (const T*)F;
+  long long src_bs = F_bs;
   for (int n = 0; n < n_sub; ++n) {
     // the last substep lands in out
     T* dst = ((n_sub - 1 - n) % 2 == 0) ? (T*)out : (T*)tmp;
-    hyper4_tile_kernel<T><<<grid, dim3(kNC, kBY), 0, (cudaStream_t)stream>>>(
-        src, (const T*)k4, (const T*)cosm, dst, H, W, inv, tsub);
+    auto kernel = n_members > 1 ? hyper4_tile_kernel<T, true> : hyper4_tile_kernel<T, false>;
+    kernel<<<grid, dim3(kNC, kBY), 0, (cudaStream_t)stream>>>(
+        src, (const T*)k4, (const T*)cosm, dst, M, H, W, src_bs, k4_bs, c_bs, inv, tsub);
     const cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
     src = dst;
+    src_bs = (long long)M * H * W;  // out and tmp hold every member's stack
   }
   return 0;
 }
@@ -86,14 +109,17 @@ extern "C" int qd_hyper4_halo(int* rows, int* cols) {
   return 0;
 }
 
-extern "C" int qd_hyper4_f32(const void* F, const void* k4, const void* cosm, void* out,
-                             void* tmp, int M, int H, int W, int n_sub, double dlat,
-                             double dlon, double a, double sub_dt, void* stream) {
-  return run<float>(F, k4, cosm, out, tmp, M, H, W, n_sub, dlat, dlon, a, sub_dt, stream);
-}
+// n_members members: member b's stack at F + b * F_bs, its k4 maps at
+// k4 + b * k4_bs and its cos map at cosm + b * c_bs; out and tmp are
+// [n_members, M, H, W]
+#define QD_HYPER4_LAUNCHER(NAME, T)                                                          \
+  extern "C" int NAME(const void* F, const void* k4, const void* cosm, void* out, void* tmp, \
+                      int n_members, long long F_bs, long long k4_bs, long long c_bs, int M, \
+                      int H, int W, int n_sub, double dlat, double dlon, double a,           \
+                      double sub_dt, void* stream) {                                         \
+    return run<T>(F, k4, cosm, out, tmp, n_members, F_bs, k4_bs, c_bs, M, H, W, n_sub, dlat,  \
+                  dlon, a, sub_dt, stream);                                                  \
+  }
 
-extern "C" int qd_hyper4_f64(const void* F, const void* k4, const void* cosm, void* out,
-                             void* tmp, int M, int H, int W, int n_sub, double dlat,
-                             double dlon, double a, double sub_dt, void* stream) {
-  return run<double>(F, k4, cosm, out, tmp, M, H, W, n_sub, dlat, dlon, a, sub_dt, stream);
-}
+QD_HYPER4_LAUNCHER(qd_hyper4_f32, float)
+QD_HYPER4_LAUNCHER(qd_hyper4_f64, double)

@@ -49,6 +49,11 @@
 // A field whose 1/8 exceeds the shared-memory stage (above ~1.6M float32
 // cells) is not staged: every pass then re-reads the CTA's slice from device
 // memory, with the same results.
+//
+// The batched form (an ensemble's members, one launch): B clusters, cluster
+// b selecting in member b's field (x + b * x_stride; a stride of 0 gives
+// every member one shared field) and writing out[b]. The clusters share
+// nothing, so each member's result is the single launch's bit for bit.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -151,8 +156,9 @@ __device__ __forceinline__ void stamp(unsigned long long* trace, int s) {
 
 template <typename T>
 __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads)
-median_pos_kernel(const T* __restrict__ x, int n_elem, int chunk, int staged, T fallback,
-                  T* __restrict__ out, unsigned long long* __restrict__ trace) {
+median_pos_kernel(const T* __restrict__ x, long long x_stride, int n_elem, int chunk,
+                  int staged, T fallback, T* __restrict__ out,
+                  unsigned long long* __restrict__ trace) {
   using B = BitsOf<T>;
   using U = typename B::U;
   constexpr int kPasses = B::kBits / kDigit;
@@ -166,9 +172,12 @@ median_pos_kernel(const T* __restrict__ x, int n_elem, int chunk, int staged, T 
 
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = (int)cluster.block_rank();
+  const int member = (int)blockIdx.x / kCluster;  // the cluster's member of a batched launch
+  x += member * x_stride;
+  out += member;
   const int tid = threadIdx.x, warp = tid >> 5;
   const int warp0 = tid & ~31;  // the warp's first thread: rounds past the end skip whole warps
-  const bool tracing = trace != nullptr && rank == 0 && tid == 0;
+  const bool tracing = trace != nullptr && member == 0 && rank == 0 && tid == 0;
   if (tracing) stamp<kSlots>(trace, 0);
   const int begin = rank * chunk;
   const int len = max(0, min(chunk, n_elem - begin));
@@ -300,8 +309,8 @@ median_pos_kernel(const T* __restrict__ x, int n_elem, int chunk, int staged, T 
 }
 
 template <typename T>
-int launch(const void* x, long long n, double fallback, void* out, void* trace,
-           void* stream) {
+int launch(const void* x, long long x_stride, int n_members, long long n, double fallback,
+           void* out, void* trace, void* stream) {
   using U = typename BitsOf<T>::U;
   // the opt-in above 48 KB of dynamic shared memory, once per device
   static unsigned long long opted_in = 0ull;
@@ -318,21 +327,24 @@ int launch(const void* x, long long n, double fallback, void* out, void* trace,
   const int chunk = (int)((n + kCluster - 1) / kCluster);
   const size_t stage_bytes = (size_t)chunk * sizeof(U);
   const int staged = stage_bytes <= (size_t)kMaxStage;
-  median_pos_kernel<T><<<kCluster, kThreads, staged ? stage_bytes : 0,
+  if (n_members < 1) return (int)cudaErrorInvalidValue;
+  median_pos_kernel<T><<<kCluster * n_members, kThreads, staged ? stage_bytes : 0,
                          (cudaStream_t)stream>>>(
-      (const T*)x, (int)n, chunk, staged, (T)fallback, (T*)out,
+      (const T*)x, x_stride, (int)n, chunk, staged, (T)fallback, (T*)out,
       (unsigned long long*)trace);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-extern "C" int qd_median_pos_f32(const void* x, long long n, double fallback, void* out,
-                                 void* trace, void* stream) {
-  return launch<float>(x, n, fallback, out, trace, stream);
+// n_members fields of n entries each, member b's at x + b * x_stride; out
+// takes n_members results
+extern "C" int qd_median_pos_f32(const void* x, long long x_stride, int n_members, long long n,
+                                 double fallback, void* out, void* trace, void* stream) {
+  return launch<float>(x, x_stride, n_members, n, fallback, out, trace, stream);
 }
 
-extern "C" int qd_median_pos_f64(const void* x, long long n, double fallback, void* out,
-                                 void* trace, void* stream) {
-  return launch<double>(x, n, fallback, out, trace, stream);
+extern "C" int qd_median_pos_f64(const void* x, long long x_stride, int n_members, long long n,
+                                 double fallback, void* out, void* trace, void* stream) {
+  return launch<double>(x, x_stride, n_members, n, fallback, out, trace, stream);
 }

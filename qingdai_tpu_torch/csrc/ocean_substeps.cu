@@ -60,6 +60,22 @@
 // owned cells (ten block barriers, the del^4 the longest stage, then the
 // gather's round trips to L2), then the one grid-wide dependency and the
 // finish: scripts/k4_anatomy.py times each stage.
+//
+// The batched form (an ensemble's members, one launch). A cooperative launch
+// holds at most one grid of co-resident blocks (132 on the H100 at this tile
+// size), so B members cannot each have their own 132 blocks. The launch
+// keeps its blocks and gives each one work item after another: item
+// b * n_tiles + t is tile t of member b, so at 181 x 360 block t runs tile t
+// of every member in turn. Member b reads mom, st, forc and geo at b times
+// their member strides (a stride of 0: one tensor shared by every member,
+// such as geo where no member differs) and writes its own outputs, scratch
+// and per-tile partial sums. The grid-wide dependency stays one barrier a
+// substep for all members; after it every block takes each member's eta
+// mean from that member's partial sums, added in the single launch's fixed
+// order, and finishes the member's cells as the single launch would. Every
+// cell's arithmetic is the single launch's, so each member's result is the
+// same bits; a member costs the tile pass's work again, the barrier is
+// shared.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -94,6 +110,9 @@ enum {
 __host__ __device__ constexpr int nbhd_rows(int k) { return 2 + 4 * k; }
 __host__ __device__ constexpr int nbhd_cols(int k) { return 1 + 2 * k; }
 
+// every array has a leading member axis of n_members; the inputs' member
+// strides are *_bs elements (0: shared by every member), the outputs' and
+// scratch's are their whole per-member size
 template <typename T>
 struct Args {
   const T* mom_in;   // [3, H, W]
@@ -107,7 +126,8 @@ struct Args {
   T* uvs;            // [2, H, W]: NaN-scrubbed U, V before mean4
   T* partials;       // [2 * n_tiles]: per-tile sums of E*w, then of w
   unsigned long long* trace;  // [2, kSlots] or null
-  int n_st, H, W, n_sub, k4_nsub, use_qnet, mean4;
+  long long mom_bs, st_bs, forc_bs, geo_bs;
+  int n_members, n_st, H, W, n_sub, k4_nsub, use_qnet, mean4;
   int th, tiles_x, n_tiles, plane;  // tile rows, tiles, shared plane size
   double sub_dt, H_m, r_bot, g, a, dlat, dlon, K_h, adv_alpha, ice_qfac, cap, eta_cap;
 };
@@ -193,22 +213,34 @@ __device__ __forceinline__ void stamp(unsigned long long* trace, int s) {
   trace[kSlots + s] = clock64();
 }
 
-// substep s's source and destination stacks
+// member b's stacks of substep s: its source and destination, its forcing
+// and geometry, its scratch and its partial sums
 template <typename T>
 struct Sub {
   const T* src;  // mom before the substep
   T* dst;        // mom after it
   const T* cur;  // st before
   T* nxt;        // st after
+  const T* forc;
+  const T* geo;
+  T* uvs;
+  T* partials;
 };
 
 template <typename T>
-__device__ __forceinline__ Sub<T> substep(const Args<T>& A, int s) {
+__device__ __forceinline__ Sub<T> substep(const Args<T>& A, int s, int b) {
+  const long long HW = (long long)A.H * A.W, mo = 3 * HW * b, so = A.n_st * HW * b;
   // the last substep lands in the outputs
   auto dst_m = [&](int q) { return ((A.n_sub - 1 - q) % 2 == 0) ? A.mom_out : A.mom2; };
   auto dst_s = [&](int q) { return ((A.n_sub - 1 - q) % 2 == 0) ? A.st_out : A.st2; };
-  return Sub<T>{s == 0 ? A.mom_in : dst_m(s - 1), dst_m(s), s == 0 ? A.st_in : dst_s(s - 1),
-                dst_s(s)};
+  return Sub<T>{s == 0 ? A.mom_in + b * A.mom_bs : dst_m(s - 1) + mo,
+                dst_m(s) + mo,
+                s == 0 ? A.st_in + b * A.st_bs : dst_s(s - 1) + so,
+                dst_s(s) + so,
+                A.forc + b * A.forc_bs,
+                A.geo + b * A.geo_bs,
+                A.uvs + 2 * HW * b,
+                A.partials + 2LL * A.n_tiles * b};
 }
 
 // shared memory of a tile pass: X = (U, V, E), G and L for three planes
@@ -230,10 +262,10 @@ template <typename T>
 __device__ __forceinline__ void tile_pass(const Args<T>& A, const Sub<T>& S, int tile,
                                           const Smem<T>& sm, bool tracing) {
   const int H = A.H, W = A.W, HW = H * W, k = A.k4_nsub;
-  const T* __restrict__ geo = A.geo;
-  const T* __restrict__ ax = A.forc;
-  const T* __restrict__ ay = A.forc + HW;
-  const T* __restrict__ heat = A.forc + 2 * HW;
+  const T* __restrict__ geo = S.geo;
+  const T* __restrict__ ax = S.forc;
+  const T* __restrict__ ay = S.forc + HW;
+  const T* __restrict__ heat = S.forc + 2 * HW;
   // written by the substep before, in the same launch: not read-only
   const T* usrc = S.src;
   const T* vsrc = S.src + HW;
@@ -374,24 +406,24 @@ __device__ __forceinline__ void tile_pass(const Args<T>& A, const Sub<T>& S, int
     S.dst[2 * HW + p] = e;
     sum_ew += e * w;
     sum_w += w;
-    A.uvs[p] = n2n(U[q]);
-    A.uvs[HW + p] = n2n(V[q]);
+    S.uvs[p] = n2n(U[q]);
+    S.uvs[HW + p] = n2n(V[q]);
   });
   block_sum2(sum_ew, sum_w, sm.red);
   if (threadIdx.x == 0 && threadIdx.y == 0) {
-    A.partials[tile] = sum_ew;
-    A.partials[A.n_tiles + tile] = sum_w;
+    S.partials[tile] = sum_ew;
+    S.partials[A.n_tiles + tile] = sum_w;
   }
   if (tracing) stamp(A.trace, 5);
 }
 
 // the eta mean from the per-tile partial sums, in one fixed order
 template <typename T>
-__device__ __forceinline__ T eta_mean(const Args<T>& A, T* red) {
+__device__ __forceinline__ T eta_mean(const Args<T>& A, const Sub<T>& S, T* red) {
   T ew = T(0), w = T(0);
   for (int b = thread_rank(); b < A.n_tiles; b += block_threads()) {
-    ew += A.partials[b];
-    w += A.partials[A.n_tiles + b];
+    ew += S.partials[b];
+    w += S.partials[A.n_tiles + b];
   }
   block_sum2(ew, w, red);
   return ew / (w + T(1e-15));
@@ -403,8 +435,8 @@ template <typename T>
 __device__ __forceinline__ void finish_cell(const Args<T>& A, const Sub<T>& S, int p, T mean) {
   const int H = A.H, W = A.W, HW = H * W;
   const T cap = T(A.cap), eta_cap = T(A.eta_cap);
-  const T* U = A.uvs;
-  const T* V = A.uvs + HW;
+  const T* U = S.uvs;
+  const T* V = S.uvs + HW;
   const T e = n2n(S.dst[2 * HW + p] - mean);
   S.dst[2 * HW + p] = e < -eta_cap ? -eta_cap : (e > eta_cap ? eta_cap : e);
 
@@ -436,29 +468,37 @@ __device__ __forceinline__ int traced_tile(const Args<T>& A) {
 }
 
 // every substep in one cooperative launch, one grid barrier for the eta
-// mean and one between substeps
-template <typename T>
+// mean and one between substeps; member 0 of a batched launch is traced.
+// kMembers false: one member, whose operands the compiler addresses from
+// the kernel's parameters as the single form always did (a member index
+// held in registers would cost the tile pass registers it spills)
+template <typename T, bool kMembers>
 __global__ void __launch_bounds__(kMaxBlock) ocean_coop_kernel(Args<T> A) {
   extern __shared__ __align__(16) unsigned char smem[];
   cg::grid_group grid = cg::this_grid();
   const Smem<T> sm = carve<T>(smem, A.plane);
   const int HW = A.H * A.W, nt = block_threads();
+  const int n_members = kMembers ? A.n_members : 1;
+  const int items = n_members * A.n_tiles;
   const bool tracer = A.trace != nullptr && thread_rank() == 0;
   for (int s = 0; s < A.n_sub; ++s) {
-    const Sub<T> S = substep(A, s);
-    for (int tile = blockIdx.x; tile < A.n_tiles; tile += gridDim.x) {
-      const bool tracing = tracer && tile == traced_tile(A);
+    for (int item = blockIdx.x; item < items; item += gridDim.x) {
+      const int b = kMembers ? item / A.n_tiles : 0, tile = item - b * A.n_tiles;
+      const bool tracing = tracer && item == traced_tile(A);
       if (tracing) stamp(A.trace, 0);
-      tile_pass(A, S, tile, sm, tracing);
+      tile_pass(A, substep(A, s, b), tile, sm, tracing);
       __syncthreads();
     }
     grid.sync();
     // the traced tile's block stamps the dependency and the finish
     const bool tracing = tracer && (int)blockIdx.x == traced_tile(A) % (int)gridDim.x;
     if (tracing) stamp(A.trace, 6);
-    const T mean = eta_mean(A, sm.red);
-    for (int p = blockIdx.x * nt + thread_rank(); p < HW; p += gridDim.x * nt)
-      finish_cell(A, S, p, mean);
+    for (int b = 0; b < n_members; ++b) {
+      const Sub<T> S = substep(A, s, b);
+      const T mean = eta_mean(A, S, sm.red);
+      for (int p = blockIdx.x * nt + thread_rank(); p < HW; p += gridDim.x * nt)
+        finish_cell(A, S, p, mean);
+    }
     if (A.trace != nullptr) {
       __syncthreads();
       if (tracing) stamp(A.trace, 7);
@@ -473,9 +513,10 @@ struct DeviceProps {
   int sms, coop, smem_optin;
 };
 DeviceProps g_props[kMaxDevices];
-size_t g_smem_set[2][kMaxDevices];     // [float, double][device]: opt-in bytes set
-int g_per_sm[2][kMaxDevices];          // [float, double]: co-resident blocks ...
-size_t g_per_sm_smem[2][kMaxDevices];  // ... at this many bytes of shared memory
+// [float, double] x [one member, members][device]
+size_t g_smem_set[4][kMaxDevices];     // opt-in bytes set
+int g_per_sm[4][kMaxDevices];          // co-resident blocks ...
+size_t g_per_sm_smem[4][kMaxDevices];  // ... at this many bytes of shared memory
 
 // the current device and its properties
 cudaError_t device_props(int* dev, DeviceProps** out) {
@@ -547,7 +588,8 @@ int tiles(int H, int W, int k4_nsub, int* n_tiles) {
 
 template <typename T>
 int launch(Args<T> A, int partial_cap, void* stream) {
-  const int ti = sizeof(T) == 4 ? 0 : 1;
+  const bool members = A.n_members > 1;
+  const int ti = (sizeof(T) == 4 ? 0 : 2) + (members ? 1 : 0);
   int dev = 0;
   DeviceProps* P = nullptr;
   cudaError_t e = device_props(&dev, &P);
@@ -561,21 +603,24 @@ int launch(Args<T> A, int partial_cap, void* stream) {
   A.tiles_x = L.tiles_x;
   A.n_tiles = L.n_tiles;
   A.plane = L.plane;
-  const void* fn = (const void*)ocean_coop_kernel<T>;
+  const void* fn = members ? (const void*)ocean_coop_kernel<T, true>
+                           : (const void*)ocean_coop_kernel<T, false>;
   if (L.bytes > 48 * 1024 && g_smem_set[ti][dev] < L.bytes) {
     e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L.bytes);
     if (e != cudaSuccess) return (int)e;
     g_smem_set[ti][dev] = L.bytes;
   }
   if (g_per_sm_smem[ti][dev] != L.bytes) {
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&g_per_sm[ti][dev], ocean_coop_kernel<T>,
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&g_per_sm[ti][dev], fn,
                                                       (int)(L.block.x * L.block.y), L.bytes);
     if (e != cudaSuccess) return (int)e;
     g_per_sm_smem[ti][dev] = L.bytes;
   }
   const int per_sm = g_per_sm[ti][dev];
   if (per_sm < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
-  const int blocks = min(L.n_tiles, per_sm * P->sms);
+  const long long items = (long long)A.n_members * L.n_tiles;
+  if (items >= (1LL << 31)) return (int)cudaErrorInvalidValue;
+  const int blocks = (int)min(items, (long long)per_sm * P->sms);
   void* params[] = {&A};
   e = cudaLaunchCooperativeKernel(fn, dim3(blocks), L.block, params, L.bytes,
                                   (cudaStream_t)stream);
@@ -586,14 +631,17 @@ int launch(Args<T> A, int partial_cap, void* stream) {
 template <typename T>
 int run(const void* mom_in, const void* st_in, const void* forc, const void* geo, void* mom_out,
         void* st_out, void* mom2, void* st2, void* uvs, void* partials, int partial_cap,
+        int n_members, long long mom_bs, long long st_bs, long long forc_bs, long long geo_bs,
         int n_st, int H, int W, int n_sub, int k4_nsub, double sub_dt, double H_m,
         double r_bot, double g, double a, double dlat, double dlon, double K_h,
         double adv_alpha, int use_qnet, double ice_qfac, double cap, int mean4, double eta_cap,
         void* trace, void* stream) {
   if (n_sub > 1 && (mom2 == nullptr || st2 == nullptr)) return (int)cudaErrorInvalidValue;
+  if (n_members < 1) return (int)cudaErrorInvalidValue;
   Args<T> A{(const T*)mom_in, (const T*)st_in, (const T*)forc, (const T*)geo, (T*)mom_out,
             (T*)st_out, (T*)mom2, (T*)st2, (T*)uvs, (T*)partials,
-            (unsigned long long*)trace, n_st, H, W, n_sub, k4_nsub, use_qnet, mean4,
+            (unsigned long long*)trace, mom_bs, st_bs, forc_bs, geo_bs,
+            n_members, n_st, H, W, n_sub, k4_nsub, use_qnet, mean4,
             0, 0, 0, 0,
             sub_dt, H_m, r_bot, g, a, dlat, dlon, K_h, adv_alpha, ice_qfac, cap, eta_cap};
   return launch<T>(A, partial_cap, stream);
@@ -615,18 +663,23 @@ extern "C" int qd_ocean_substeps_tiles_f64(int H, int W, int k4_nsub, int* n_til
   return tiles<double>(H, W, k4_nsub, n_tiles);
 }
 
+// n_members members: member b's inputs at mom_in + b * mom_bs, st_in + b *
+// st_bs, forc + b * forc_bs and geo + b * geo_bs; the outputs, mom2, st2 and
+// uvs hold [n_members, ...] and partials [n_members, 2 * n_tiles], n_tiles <= partial_cap
 #define QD_OCEAN_LAUNCHER(NAME, T)                                                          \
   extern "C" int NAME(const void* mom_in, const void* st_in, const void* forc,             \
                       const void* geo, void* mom_out, void* st_out, void* mom2, void* st2, \
-                      void* uvs, void* partials, int partial_cap, int n_st, int H, int W,  \
-                      int n_sub, int k4_nsub, double sub_dt, double H_m, double r_bot,     \
-                      double g, double a, double dlat, double dlon, double K_h,            \
-                      double adv_alpha, int use_qnet, double ice_qfac, double cap,         \
-                      int mean4, double eta_cap, void* trace, void* stream) {              \
+                      void* uvs, void* partials, int partial_cap, int n_members,           \
+                      long long mom_bs, long long st_bs, long long forc_bs,                \
+                      long long geo_bs, int n_st, int H, int W, int n_sub, int k4_nsub,    \
+                      double sub_dt, double H_m, double r_bot, double g, double a,         \
+                      double dlat, double dlon, double K_h, double adv_alpha,              \
+                      int use_qnet, double ice_qfac, double cap, int mean4,                \
+                      double eta_cap, void* trace, void* stream) {                         \
     return run<T>(mom_in, st_in, forc, geo, mom_out, st_out, mom2, st2, uvs, partials,     \
-                  partial_cap, n_st, H, W, n_sub, k4_nsub, sub_dt, H_m, r_bot, g, a, dlat, \
-                  dlon, K_h, adv_alpha, use_qnet, ice_qfac, cap, mean4, eta_cap, trace,    \
-                  stream);                                                                  \
+                  partial_cap, n_members, mom_bs, st_bs, forc_bs, geo_bs, n_st, H, W,      \
+                  n_sub, k4_nsub, sub_dt, H_m, r_bot, g, a, dlat, dlon, K_h, adv_alpha,    \
+                  use_qnet, ice_qfac, cap, mean4, eta_cap, trace, stream);                  \
   }
 
 QD_OCEAN_LAUNCHER(qd_ocean_substeps_f32, float)

@@ -7,9 +7,10 @@ vectorized over species and selected by a per-species mode mask, and
 mutation activates a slot. Every data-dependent choice is a ``torch.where``
 on device values (the sub-daily canopy refresh, the mutation's fire), so
 the step never waits on the card. Mutation draws from the model's
-``torch.Generator``; its numbers differ from the JAX package's threefry
-stream, so parity holds with mutation off and the mutation itself is
-checked for its invariants.
+``torch.Generator`` (``mutation_draws``, or draws passed in: an ensemble's
+members each draw from their own); its numbers differ from the JAX
+package's threefry stream, so parity holds with mutation off and the
+mutation itself is checked for its invariants.
 
 Reference quirk kept, as in the JAX package: with the default K=1 the daily
 growth/senescence term does not reach the SK tensor (QD_ECO_FIX_K1_GROWTH=1
@@ -20,6 +21,7 @@ from __future__ import annotations
 
 import dataclasses
 import os
+import typing
 
 import numpy as np
 import torch
@@ -220,11 +222,51 @@ def _roll2(x, dy, dx):
     return torch.roll(x, shifts=(dy, dx), dims=(-2, -1))
 
 
+class MutationDraws(typing.NamedTuple):
+    """The random numbers one daily mutation takes, in the order they are
+    drawn: the fire's uniform, the Gumbel uniforms [S] of the parent's
+    draw, the allocation jitter's uniforms [3], the peaks' normals [P] for
+    centre, width and height, and one normal each for drought tolerance,
+    germination GDD, lifespan and leaf area per energy."""
+    u: torch.Tensor
+    gumbel: torch.Tensor
+    jit: torch.Tensor
+    c: torch.Tensor
+    wdt: torch.Tensor
+    h: torch.Tensor
+    tol: torch.Tensor
+    gdd: torch.Tensor
+    life: torch.Tensor
+    lape: torch.Tensor
+
+
+def mutation_draws(es: EcoStatic, state: EcoState,
+                   generator: torch.Generator) -> MutationDraws:
+    """One daily mutation's draws from ``generator``, in the order and shapes
+    ``eco_step_daily`` has always taken them, so a run draws the same numbers
+    whether it passes them in or a generator. An ensemble draws each member's
+    from that member's generator, outside ``torch.func.vmap``."""
+    dev, dtype = state.LAI_SK.device, state.LAI_SK.dtype
+    P = state.peaks.shape[-2]   # [S, P, 3]
+
+    def uniform(*shape):
+        return torch.rand(shape, generator=generator, device=dev, dtype=dtype)
+
+    def normal(*shape):
+        return torch.randn(shape, generator=generator, device=dev, dtype=dtype)
+
+    return MutationDraws(u=uniform(), gumbel=uniform(es.S), jit=uniform(3), c=normal(P),
+                         wdt=normal(P), h=normal(P), tol=normal(), gdd=normal(), life=normal(),
+                         lape=normal())
+
+
 def eco_step_daily(es: EcoStatic, state: EcoState, cfg: EcologyConfig,
-                   soil_water_index, generator: torch.Generator | None = None) -> EcoState:
+                   soil_water_index, generator: torch.Generator | None = None,
+                   draws: MutationDraws | None = None) -> EcoState:
     """Daily LAI update, spread, germination and mutation
-    (population.py:389-596, adapter.py:429-515). ``generator`` feeds the
-    mutation draws; it is needed only when QD_ECO_MUT_RATE > 0."""
+    (population.py:389-596, adapter.py:429-515). When QD_ECO_MUT_RATE > 0
+    the mutation takes ``draws``, or draws them from ``generator``
+    (``mutation_draws``)."""
     S, K = es.S, es.K
     land = es.land
     landf = land.to(state.E_day.dtype)
@@ -352,12 +394,14 @@ def eco_step_daily(es: EcoStatic, state: EcoState, cfg: EcologyConfig,
 
     # ---- mutation (adapter.py:438-466, _mutate_genes :471-515) ----
     if cfg.mut_rate > 0.0:
-        if generator is None:
-            raise ValueError("QD_ECO_MUT_RATE > 0 needs the model's torch.Generator")
-        u = torch.rand((), generator=generator, device=LAI_SK.device, dtype=LAI_SK.dtype)
-        fire = (u < cfg.mut_rate) & (new_state.n_active < cfg.species_max)
+        if draws is None:
+            if generator is None:
+                raise ValueError("QD_ECO_MUT_RATE > 0 needs the model's torch.Generator "
+                                 "or the mutation's draws")
+            draws = mutation_draws(es, new_state, generator)
+        fire = (draws.u < cfg.mut_rate) & (new_state.n_active < cfg.species_max)
         # the mutated state is computed and selected on the device: no host sync
-        mutated = _mutate(es, new_state, cfg, generator)
+        mutated = _mutate(es, new_state, cfg, draws)
         new_state = EcoState(**{f.name: torch.where(fire, getattr(mutated, f.name),
                                                     getattr(new_state, f.name))
                                 for f in dataclasses.fields(EcoState)})
@@ -365,20 +409,14 @@ def eco_step_daily(es: EcoStatic, state: EcoState, cfg: EcologyConfig,
 
 
 def _mutate(es: EcoStatic, state: EcoState, cfg: EcologyConfig,
-            generator: torch.Generator) -> EcoState:
+            draws: MutationDraws) -> EcoState:
     """Split a fraction of a weighted-random parent's LAI into the next free
     slot and jitter its genome (population.py:361-387, adapter.py:471-515)."""
     S = es.S
-    dev, dtype = state.LAI_SK.device, state.LAI_SK.dtype
-
-    def normal(*shape):
-        return torch.randn(shape, generator=generator, device=dev, dtype=dtype)
-
     w = torch.where(state.active, torch.clamp(state.species_weights, min=0.0), 0.0)
     w = w / (torch.sum(w) + 1e-12)
     # categorical draw by the Gumbel-max trick, as jax.random.categorical
-    gumbel = -torch.log(-torch.log(torch.rand((S,), generator=generator, device=dev,
-                                              dtype=dtype)))
+    gumbel = -torch.log(-torch.log(draws.gumbel))
     parent = torch.argmax(torch.log(w + 1e-12) + gumbel).reshape(1)
     idx_new = torch.clamp(state.n_active, 0, S - 1).to(torch.int64).reshape(1)
     frac = float(np.clip(cfg.mut_eps, 0.0, 0.5))
@@ -394,25 +432,25 @@ def _mutate(es: EcoStatic, state: EcoState, cfg: EcologyConfig,
     LAI_SK = torch.clamp(put(LAI_SK, transfer), 0.0, cfg.lai_max)
 
     # allocation jitter, then renormalize
-    jit = torch.rand((3,), generator=generator, device=dev, dtype=dtype) * 0.1 - 0.05
+    jit = draws.jit * 0.1 - 0.05
     alloc_n = torch.clamp(row(state.alloc) + jit, 0.05, 0.90)
     alloc_n = alloc_n / torch.sum(alloc_n)
     # peaks jitter plus spectral drift toward the weighted band center
     pk = row(state.peaks)
-    P_ = pk.shape[0]
-    c = torch.clamp(pk[:, 0] + 8.0 * normal(P_), 380.0, 780.0)
-    wdt = torch.clamp(pk[:, 1] + 5.0 * normal(P_), 10.0, 120.0)
-    h = torch.clamp(pk[:, 2] + 0.05 * normal(P_), 0.05, 0.98)
+    c = torch.clamp(pk[:, 0] + 8.0 * draws.c, 380.0, 780.0)
+    wdt = torch.clamp(pk[:, 1] + 5.0 * draws.wdt, 10.0, 120.0)
+    h = torch.clamp(pk[:, 2] + 0.05 * draws.h, 0.05, 0.98)
     # keep padding rows dead (height stays 0 for unused peak slots)
     h = torch.where(pk[:, 2] > 0.0, h, 0.0)
     lam_w = torch.sum(es.lambda_centers * es.w_b) / (torch.sum(es.w_b) + 1e-12)
     c = torch.clamp(c + cfg.mut_lambda_drift * (lam_w - c), 380.0, 780.0)
     peaks_n = torch.stack([c, wdt, h], dim=-1)
 
-    tol_n = torch.clamp(row(state.drought_tolerance) + 0.03 * normal(), 0.05, 0.95)
-    gdd_n = torch.clamp(row(state.gdd_germinate) + 5.0 * normal(), 10.0, 500.0)
-    life_n = torch.clamp(row(state.lifespan_days) + 30.0 * normal(), 30.0, 365.0 * 5)
-    lape_n = torch.clamp(row(state.leaf_area_per_energy) * (1.0 + 0.1 * normal()), 1e-5, 5e-2)
+    tol_n = torch.clamp(row(state.drought_tolerance) + 0.03 * draws.tol, 0.05, 0.95)
+    gdd_n = torch.clamp(row(state.gdd_germinate) + 5.0 * draws.gdd, 10.0, 500.0)
+    life_n = torch.clamp(row(state.lifespan_days) + 30.0 * draws.life, 30.0, 365.0 * 5)
+    lape_n = torch.clamp(row(state.leaf_area_per_energy) * (1.0 + 0.1 * draws.lape), 1e-5,
+                         5e-2)
 
     R_new = 1.0 - spec.absorbance_from_peaks(es.lambda_centers, peaks_n)
 

@@ -13,6 +13,8 @@ through the kernels.
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 from .build import load_library
@@ -43,6 +45,21 @@ def check_tensor(t: torch.Tensor, name: str, dtype: torch.dtype, shape=None) -> 
         raise ValueError(f"{name}: expected a contiguous tensor")
 
 
+def member_stride(t: torch.Tensor, name: str, dtype: torch.dtype, shape, n_members: int) -> int:
+    """A batched form's input: an [n_members, *shape] tensor, each member's
+    own (its member stride is the per-member size), or a [*shape] tensor
+    shared by every member (stride 0, read without a copy). Checked as
+    ``check_tensor`` does."""
+    if n_members < 1:
+        raise ValueError(f"n_members must be >= 1, got {n_members}")
+    shape = tuple(shape)
+    if isinstance(t, torch.Tensor) and t.dim() == len(shape) + 1:
+        check_tensor(t, name, dtype, (n_members,) + shape)
+        return math.prod(shape)
+    check_tensor(t, name, dtype, shape)
+    return 0
+
+
 def launch(name: str, dtype: torch.dtype, device: torch.device, *args) -> None:
     """Call launcher ``name`` for ``dtype`` on ``device``'s current stream."""
     if dtype not in FLOAT_TYPES:
@@ -55,13 +72,19 @@ def launch(name: str, dtype: torch.dtype, device: torch.device, *args) -> None:
 
 
 def wrappers() -> dict:
-    """The kernel wrappers by kernel name."""
-    from .advect_bilinear import advect_bilinear_cuda
-    from .hyper4 import hyperdiffuse_cuda
-    from .median_pos import median_pos_cuda
-    from .ocean_substeps import ocean_substeps_cuda
+    """The kernel wrappers by kernel name: the four single forms and their
+    batched forms (one launch for an ensemble's members), each counted
+    apart."""
+    from .advect_bilinear import advect_bilinear_batched_cuda, advect_bilinear_cuda
+    from .hyper4 import hyperdiffuse_batched_cuda, hyperdiffuse_cuda
+    from .median_pos import median_pos_batched_cuda, median_pos_cuda
+    from .ocean_substeps import ocean_substeps_batched_cuda, ocean_substeps_cuda
     return {"median_pos": median_pos_cuda, "advect_bilinear": advect_bilinear_cuda,
-            "hyper4": hyperdiffuse_cuda, "ocean_substeps": ocean_substeps_cuda}
+            "hyper4": hyperdiffuse_cuda, "ocean_substeps": ocean_substeps_cuda,
+            "median_pos_batched": median_pos_batched_cuda,
+            "advect_bilinear_batched": advect_bilinear_batched_cuda,
+            "hyper4_batched": hyperdiffuse_batched_cuda,
+            "ocean_substeps_batched": ocean_substeps_batched_cuda}
 
 
 def launch_counts() -> dict:

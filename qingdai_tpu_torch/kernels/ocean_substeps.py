@@ -1,5 +1,6 @@
-"""Wrapper of kernel K4 (``csrc/ocean_substeps.cu``): the slab ocean's whole
-substep loop on halo tiles, one grid-wide dependency (the η mean) a substep.
+"""Wrappers of kernel K4 (``csrc/ocean_substeps.cu``): the slab ocean's whole
+substep loop on halo tiles, one grid-wide dependency (the η mean) a substep;
+the batched form runs every member of an ensemble in the same launch.
 
 Replaces ``ocean_substeps_pallas`` (``qingdai_tpu/ops/pallas_ocean.py``);
 plain version ``ocean.ocean_substeps_plain``.
@@ -11,7 +12,7 @@ import ctypes
 
 import torch
 
-from . import FLOAT_TYPES, check_tensor, launch
+from . import FLOAT_TYPES, check_tensor, launch, member_stride
 from .build import load_library
 
 # slots of a traced launch: tile entry, after the momentum, after ∇⁴, after
@@ -71,41 +72,76 @@ def ocean_substeps_cuda(mom: torch.Tensor, st: torch.Tensor, forc: torch.Tensor,
     ``trace``, an int64 CUDA tensor of shape ``(2, TRACE_SLOTS)``, takes at
     each stage boundary of the middle tile's block (of the last substep) the
     device's global timer in ns (row 0) and the SM's cycle counter (row 1)."""
-    check_tensor(st, "st", st.dtype)
-    if st.dim() != 3 or st.shape[0] == 0 or st.shape[1] < 3 or st.shape[2] < 3:
-        raise ValueError(f"st: expected [n_st, H, W] with H, W >= 3, got {tuple(st.shape)}")
-    n_st, H, W = st.shape
-    if st.numel() >= 2 ** 31:
-        raise ValueError(f"st: {st.numel()} cells exceed the kernel's 32-bit indices")
-    check_tensor(mom, "mom", st.dtype, (3, H, W))
-    check_tensor(forc, "forc", st.dtype, (3, H, W))
-    check_tensor(geo, "geo", st.dtype, (12, H, W))
-    if len({t.device for t in (mom, st, forc, geo)}) != 1:
-        raise ValueError("mom, st, forc and geo must be on one device")
-    if n_sub < 1 or k4_nsub < 1:
-        raise ValueError(f"n_sub and k4_nsub must be >= 1, got {n_sub}, {k4_nsub}")
+    if not isinstance(st, torch.Tensor) or st.dim() != 3:
+        raise ValueError("st: expected an [n_st, H, W] CUDA tensor")
     if trace is not None:
         check_tensor(trace, "trace", torch.int64, (2, TRACE_SLOTS))
-    if k4_nsub not in ocean_substeps_cuda.halo_checked:
-        check_halo(k4_nsub)
-        ocean_substeps_cuda.halo_checked.add(k4_nsub)
-    mom_out = torch.empty_like(mom)
-    st_out = torch.empty_like(st)
-    mom2 = torch.empty_like(mom) if n_sub > 1 else None
-    st2 = torch.empty_like(st) if n_sub > 1 else None
-    uvs = torch.empty((2, H, W), dtype=st.dtype, device=st.device)
-    tiles = n_tiles(st.dtype, st.device, H, W, k4_nsub)
-    partials = torch.empty((2 * tiles,), dtype=st.dtype, device=st.device)
-    ptr = (lambda t: None if t is None else t.data_ptr())
-    launch("qd_ocean_substeps", st.dtype, st.device, mom.data_ptr(), st.data_ptr(),
-           forc.data_ptr(), geo.data_ptr(), mom_out.data_ptr(), st_out.data_ptr(), ptr(mom2),
-           ptr(st2), uvs.data_ptr(), partials.data_ptr(), tiles, n_st, H, W, int(n_sub),
-           int(k4_nsub), float(sub_dt), float(H_m), float(r_bot), float(g), float(a),
-           float(dlat), float(dlon), float(K_h), float(adv_alpha), int(bool(use_qnet)),
-           float(ice_qfac), float(cap), int(bool(mean4)), float(eta_cap), ptr(trace))
+    mom_out, st_out = _run(mom, st, forc, geo, 1, n_sub=n_sub, k4_nsub=k4_nsub, sub_dt=sub_dt,
+                           H_m=H_m, r_bot=r_bot, g=g, a=a, dlat=dlat, dlon=dlon, K_h=K_h,
+                           adv_alpha=adv_alpha, use_qnet=use_qnet, ice_qfac=ice_qfac, cap=cap,
+                           mean4=mean4, eta_cap=eta_cap, trace=trace)
     ocean_substeps_cuda.launches += 1
-    return mom_out, st_out
+    return mom_out[0], st_out[0]
 
 
 ocean_substeps_cuda.launches = 0
 ocean_substeps_cuda.halo_checked = set()
+
+
+def ocean_substeps_batched_cuda(mom: torch.Tensor, st: torch.Tensor, forc: torch.Tensor,
+                                geo: torch.Tensor, n_members: int, **params):
+    """``ocean_substeps_cuda`` for ``n_members`` members in one cooperative
+    launch: mom, forc [n_members, 3, H, W], st [n_members, n_st, H, W] and
+    geo [n_members, 12, H, W]; any of them may instead be one tensor without
+    the member axis, shared by every member. The same blocks take every
+    member's tiles in turn, with one grid barrier a substep for all members
+    (``csrc/ocean_substeps.cu``). Returns (mom' [n_members, 3, H, W], st'
+    [n_members, n_st, H, W]); member b's result is ``ocean_substeps_cuda``
+    of member b's inputs bit for bit."""
+    if not isinstance(st, torch.Tensor) or st.dim() not in (3, 4):
+        raise ValueError("st: expected an [n_members, n_st, H, W] or [n_st, H, W] CUDA tensor")
+    out = _run(mom, st, forc, geo, int(n_members), **params)
+    ocean_substeps_batched_cuda.launches += 1
+    return out
+
+
+ocean_substeps_batched_cuda.launches = 0
+
+
+def _run(mom, st, forc, geo, n_members, *, n_sub, k4_nsub, sub_dt, H_m, r_bot, g, a, dlat,
+         dlon, K_h, adv_alpha, use_qnet, ice_qfac, cap, mean4, eta_cap, trace=None):
+    """One launch for ``n_members`` members (each input with or without the
+    member axis): (mom' [n_members, 3, H, W], st' [n_members, n_st, H, W])."""
+    n_st, H, W = st.shape[-3:]
+    if n_st == 0 or H < 3 or W < 3:
+        raise ValueError(f"st: expected n_st >= 1 and H, W >= 3, got {tuple(st.shape)}")
+    if n_members * max(n_st, 3) * H * W >= 2 ** 31:
+        raise ValueError(f"st: {n_members} member(s) of {n_st}x{H}x{W} cells exceed the "
+                         "kernel's 32-bit indices")
+    strides = [member_stride(t, name, st.dtype, shape, n_members)
+               for t, name, shape in ((mom, "mom", (3, H, W)), (st, "st", (n_st, H, W)),
+                                      (forc, "forc", (3, H, W)), (geo, "geo", (12, H, W)))]
+    if len({t.device for t in (mom, st, forc, geo)}) != 1:
+        raise ValueError("mom, st, forc and geo must be on one device")
+    if n_sub < 1 or k4_nsub < 1:
+        raise ValueError(f"n_sub and k4_nsub must be >= 1, got {n_sub}, {k4_nsub}")
+    if k4_nsub not in ocean_substeps_cuda.halo_checked:
+        check_halo(k4_nsub)
+        ocean_substeps_cuda.halo_checked.add(k4_nsub)
+    dev, dtype = st.device, st.dtype
+    mom_out = torch.empty((n_members, 3, H, W), dtype=dtype, device=dev)
+    st_out = torch.empty((n_members, n_st, H, W), dtype=dtype, device=dev)
+    mom2 = torch.empty_like(mom_out) if n_sub > 1 else None
+    st2 = torch.empty_like(st_out) if n_sub > 1 else None
+    uvs = torch.empty((n_members, 2, H, W), dtype=dtype, device=dev)
+    tiles = n_tiles(dtype, dev, H, W, k4_nsub)
+    partials = torch.empty((n_members, 2 * tiles), dtype=dtype, device=dev)
+    ptr = (lambda t: None if t is None else t.data_ptr())
+    launch("qd_ocean_substeps", dtype, dev, mom.data_ptr(), st.data_ptr(), forc.data_ptr(),
+           geo.data_ptr(), mom_out.data_ptr(), st_out.data_ptr(), ptr(mom2), ptr(st2),
+           uvs.data_ptr(), partials.data_ptr(), tiles, n_members, *strides, n_st, H, W,
+           int(n_sub), int(k4_nsub), float(sub_dt), float(H_m), float(r_bot), float(g),
+           float(a), float(dlat), float(dlon), float(K_h), float(adv_alpha),
+           int(bool(use_qnet)), float(ice_qfac), float(cap), int(bool(mean4)), float(eta_cap),
+           ptr(trace))
+    return mom_out, st_out

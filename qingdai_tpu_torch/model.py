@@ -150,11 +150,32 @@ def init_world(model: Model, t0_seconds: float = 0.0, seed: int = 42) -> WorldSt
                       routing=routing)
 
 
+def _day_end(model: Model, clock: ClockState):
+    """(the day accumulator after the next step from ``clock``, whether that
+    step ends a day): host numbers, no sync."""
+    dt_r, day_r = round_to(model.dt, model.dtype), round_to(model.day_seconds, model.dtype)
+    accum_t = round_to(clock.accum_t_day + dt_r, model.dtype)
+    return accum_t, accum_t >= day_r
+
+
+def mutation_due(model: Model, clock: ClockState) -> bool:
+    """Whether the next step from ``clock`` draws the daily mutation's
+    random numbers: ecology on, QD_ECO_MUT_RATE > 0, and the step ends a
+    day (``_day_end``, the step's own test)."""
+    ecfg = model.cfg.ecology
+    if model.eco_static is None or not ecfg.enabled or ecfg.mut_rate <= 0.0:
+        return False
+    return _day_end(model, clock)[1]
+
+
 def make_step_fn(model: Model, with_diags: bool = True):
-    """Returns step(state) -> (state, diag dict of 0-d tensors).
+    """Returns step(state, draws=None) -> (state, diag dict of 0-d tensors).
 
     ``with_diags=False`` returns ``(state, {})`` and skips the diag-only
-    reductions; the state trajectory is the same."""
+    reductions; the state trajectory is the same. On a step where
+    ``mutation_due``, the mutation takes ``draws``
+    (``ecology.population.MutationDraws``) or, without them, draws from
+    ``model.generator``."""
     grid, cfg, static, dt = model.grid, model.cfg, model.static, model.dt
     day_s = model.day_seconds
     pcfg, hcfg, ecfg = cfg.physics, cfg.hydrology, cfg.ecology
@@ -173,7 +194,7 @@ def make_step_fn(model: Model, with_diags: bool = True):
     dt_r, day_r = round_to(dt, model.dtype), round_to(day_s, model.dtype)
     true_ = torch.ones((), dtype=torch.bool, device=model.device)
 
-    def step(state: WorldState):
+    def step(state: WorldState, draws: Optional[eco_mod.MutationDraws] = None):
         atmos, clock, alb, lstate = state.atmos, state.clock, state.albedo, state.land
         eco_state, indiv_state, phyto_state = state.eco, state.indiv, state.phyto
         step_idx = clock.step_idx
@@ -189,14 +210,14 @@ def make_step_fn(model: Model, with_diags: bool = True):
 
         # ---- daily accumulation and the day-boundary block ----
         precip_acc = clock.precip_acc_day + torch.nan_to_num(precip) * dt
-        accum_t = round_to(clock.accum_t_day + dt_r, model.dtype)
-        is_daily = accum_t >= day_r
+        accum_t, is_daily = _day_end(model, clock)
         alpha_banded_daily, has_banded = alb.alpha_banded_daily, alb.has_alpha_banded
         if eco_on:
             soil_idx = torch.clamp(lstate.W_land / max(1e-6, ecfg.soil_water_cap), 0.0, 1.0)
             soil_idx = soil_idx * (~lstate.glacier_mask)
         if eco_on and is_daily:
-            eco_state = eco_mod.eco_step_daily(es, eco_state, ecfg, soil_idx, model.generator)
+            eco_state = eco_mod.eco_step_daily(es, eco_state, ecfg, soil_idx, model.generator,
+                                               draws)
             # glacier cells: zero LAI
             eco_state = dataclasses.replace(eco_state, LAI_SK=torch.where(
                 lstate.glacier_mask[None, None], 0.0, eco_state.LAI_SK))

@@ -22,6 +22,7 @@ from .config import OceanConfig
 from .grid import Grid
 from .kernels import use_kernel
 from .ops import safegrad
+from .ops.members import refuse_grad, to_front
 from .ops.advect import advect_semilag_multi, bilinear_wrap_gather_multi, departure_indices
 from .ops.reductions import area_mean
 from .ops.stencil import (hyperdiffuse_multi, hyperdiffuse_multi_ref, laplacian_sphere,
@@ -215,12 +216,33 @@ def ocean_substeps_plain(mom, st, forc, geo, **params):
     return _substeps(mom, st, forc, geo, **params)
 
 
-def ocean_substeps(mom, st, forc, geo, **params):
-    """K4 on a CUDA tensor, its plain version on a CPU tensor."""
-    if use_kernel(st):
+class OceanSubsteps(torch.autograd.Function):
+    """K4 on a CUDA tensor; under ``torch.func.vmap`` the batched form, one
+    cooperative launch for every member (``ops.members``). ``params`` is the
+    dict of keyword parameters."""
+
+    @staticmethod
+    def forward(mom, st, forc, geo, params):
         from .kernels.ocean_substeps import ocean_substeps_cuda
         return ocean_substeps_cuda(mom, st, forc, geo, **params)
-    return ocean_substeps_plain(mom, st, forc, geo, **params)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def vmap(info, in_dims, mom, st, forc, geo, params):
+        from .kernels.ocean_substeps import ocean_substeps_batched_cuda
+        ops = [to_front(t, d) for t, d in zip((mom, st, forc, geo), in_dims)]
+        return ocean_substeps_batched_cuda(*ops, info.batch_size, **params), (0, 0)
+
+
+def ocean_substeps(mom, st, forc, geo, **params):
+    """K4 on a CUDA tensor, its plain version on a CPU tensor."""
+    if not use_kernel(st):
+        return ocean_substeps_plain(mom, st, forc, geo, **params)
+    refuse_grad("ocean_substeps", mom, st, forc, geo)
+    return OceanSubsteps.apply(mom, st, forc, geo, params)
 
 
 def fused_structure(cfg: OceanConfig) -> bool:

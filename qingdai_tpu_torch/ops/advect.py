@@ -7,7 +7,8 @@ exact polar rows, polar band pass, band merge, polar matmul) only works around
 the TPU's gather cost: one gather over every row computes the same
 interpolation, so the port has none of it. ``advect_semilag_multi`` runs
 kernel K2 (``kernels/advect_bilinear.py``), which computes the departure
-points itself, on a CUDA tensor, and the plain ``departure_indices`` and
+points itself, on a CUDA tensor, through ``AdvectBilinear`` (an ensemble's
+members in one launch), and the plain ``departure_indices`` and
 ``bilinear_wrap_gather_multi`` on a CPU tensor.
 """
 
@@ -16,6 +17,7 @@ from __future__ import annotations
 import torch
 
 from ..kernels import use_kernel
+from .members import refuse_grad, to_front
 
 
 def bilinear_wrap_gather_multi(fields: torch.Tensor, dep_j: torch.Tensor,
@@ -56,14 +58,43 @@ def departure_indices(shape, u, v, dt, a, dlat, dlon, coslat, dtype):
     return jj - dy, ii - dx
 
 
-def advect_semilag_multi(fields: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
-                         dt: float, a: float, dlat: float, dlon: float,
-                         coslat: torch.Tensor) -> torch.Tensor:
-    """Advect stacked fields [M, H, W] by the same wind over dt."""
-    if use_kernel(fields):
-        from ..kernels.advect_bilinear import advect_bilinear_cuda
-        return advect_bilinear_cuda(fields, u, v, dt, a, dlat, dlon, coslat)
+def advect_semilag_multi_ref(fields: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
+                             dt: float, a: float, dlat: float, dlon: float,
+                             coslat: torch.Tensor) -> torch.Tensor:
+    """Plain version of kernel K2 from the winds: ``departure_indices`` and
+    ``bilinear_wrap_gather_multi``."""
     dep_j, dep_i = departure_indices(fields.shape[1:], u, v, dt, a, dlat, dlon,
                                      coslat, fields.dtype)
     return bilinear_wrap_gather_multi(fields, dep_j, dep_i)
 
+
+class AdvectBilinear(torch.autograd.Function):
+    """K2 on a CUDA tensor; under ``torch.func.vmap`` the batched form, one
+    launch for every member (``ops.members``)."""
+
+    @staticmethod
+    def forward(fields, u, v, dt, a, dlat, dlon, coslat):
+        from ..kernels.advect_bilinear import advect_bilinear_cuda
+        return advect_bilinear_cuda(fields, u, v, dt, a, dlat, dlon, coslat)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def vmap(info, in_dims, fields, u, v, dt, a, dlat, dlon, coslat):
+        from ..kernels.advect_bilinear import advect_bilinear_batched_cuda
+        f, uu, vv, c = (to_front(t, d) for t, d in zip((fields, u, v, coslat),
+                                                     in_dims[:3] + in_dims[7:]))
+        return advect_bilinear_batched_cuda(f, uu, vv, dt, a, dlat, dlon, c,
+                                            info.batch_size), 0
+
+
+def advect_semilag_multi(fields: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
+                         dt: float, a: float, dlat: float, dlon: float,
+                         coslat: torch.Tensor) -> torch.Tensor:
+    """Advect stacked fields [M, H, W] by the same wind over dt."""
+    if not use_kernel(fields):
+        return advect_semilag_multi_ref(fields, u, v, dt, a, dlat, dlon, coslat)
+    refuse_grad("advect_bilinear", fields, u, v, coslat)
+    return AdvectBilinear.apply(fields, u, v, dt, a, dlat, dlon, coslat)

@@ -2,8 +2,9 @@
 (port of ``qingdai_tpu/ops/reductions.py``).
 
 ``masked_median_of_positive`` runs kernel K1 (``kernels/median_pos.py``) on a
-CUDA tensor and the sort-based ``masked_median_of_positive_ref`` on a CPU
-tensor. Both compute the exact ``np.median(x[x > 0])``.
+CUDA tensor, through ``MedianPos`` (an ensemble's members in one launch), and
+the sort-based ``masked_median_of_positive_ref`` on a CPU tensor. Both
+compute the exact ``np.median(x[x > 0])``.
 """
 
 from __future__ import annotations
@@ -11,6 +12,7 @@ from __future__ import annotations
 import torch
 
 from ..kernels import use_kernel
+from .members import refuse_grad, to_front
 
 
 def area_mean(x: torch.Tensor, w: torch.Tensor, mask: torch.Tensor | None = None) -> torch.Tensor:
@@ -53,10 +55,29 @@ def masked_median_of_positive_ref(x: torch.Tensor, fallback: float = 1e-6) -> to
     return torch.where(n > 0, med, torch.full((), fallback, dtype=x.dtype, device=x.device))
 
 
+class MedianPos(torch.autograd.Function):
+    """K1 on a CUDA tensor; under ``torch.func.vmap`` the batched form, one
+    launch for every member (``ops.members``)."""
+
+    @staticmethod
+    def forward(x, fallback):
+        from ..kernels.median_pos import median_pos_cuda
+        return median_pos_cuda(x, fallback)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def vmap(info, in_dims, x, fallback):
+        from ..kernels.median_pos import median_pos_batched_cuda
+        return median_pos_batched_cuda(to_front(x, in_dims[0]), info.batch_size, fallback), 0
+
+
 def masked_median_of_positive(x: torch.Tensor, fallback: float = 1e-6) -> torch.Tensor:
     """Median over strictly positive entries of x as a 0-d tensor on x's
     device; ``fallback`` if none is positive. Never syncs with the host."""
-    if use_kernel(x):
-        from ..kernels.median_pos import median_pos_cuda
-        return median_pos_cuda(x, fallback)
-    return masked_median_of_positive_ref(x, fallback)
+    if not use_kernel(x):
+        return masked_median_of_positive_ref(x, fallback)
+    refuse_grad("median_pos", x)
+    return MedianPos.apply(x, fallback)

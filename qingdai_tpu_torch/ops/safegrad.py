@@ -3,7 +3,9 @@
 Each function's forward value is the plain expression; only the derivative
 changes: at the singular point it is the zero subgradient instead of inf or
 NaN. The JAX package writes these as custom JVPs; here the same rules are the
-backward passes of ``torch.autograd.Function``s.
+backward passes of ``torch.autograd.Function``s. Their forward passes are
+plain expressions, so ``torch.func.vmap`` batches them by its generated rule
+(an ensemble's step runs them over the members).
 """
 
 from __future__ import annotations
@@ -16,11 +18,15 @@ def _tiny(x: torch.Tensor) -> float:
 
 
 class _QuarticRoot(torch.autograd.Function):
+    generate_vmap_rule = True
+
     @staticmethod
-    def forward(ctx, x):
-        y = x ** 0.25
-        ctx.save_for_backward(x, y)
-        return y
+    def forward(x):
+        return x ** 0.25
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(inputs[0], output)
 
     @staticmethod
     def backward(ctx, g):
@@ -32,11 +38,15 @@ class _QuarticRoot(torch.autograd.Function):
 
 
 class _Speed(torch.autograd.Function):
+    generate_vmap_rule = True
+
     @staticmethod
-    def forward(ctx, u, v):
-        s = torch.sqrt(u * u + v * v)
-        ctx.save_for_backward(u, v, s)
-        return s
+    def forward(u, v):
+        return torch.sqrt(u * u + v * v)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(*inputs, output)
 
     @staticmethod
     def backward(ctx, g):
@@ -49,11 +59,15 @@ class _Speed(torch.autograd.Function):
 
 
 class _PowSafe(torch.autograd.Function):
+    generate_vmap_rule = True
+
     @staticmethod
-    def forward(ctx, x, p):
-        y = torch.pow(x, p)
-        ctx.save_for_backward(x, p, y)
-        return y
+    def forward(x, p):
+        return torch.pow(x, p)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(*inputs, output)
 
     @staticmethod
     def backward(ctx, g):

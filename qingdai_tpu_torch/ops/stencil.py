@@ -4,7 +4,8 @@
 Longitude is periodic (roll), latitude uses np.gradient's one-sided edges, and
 the cosφ metric is capped below by the caller's cap map (atmosphere 0.2,
 ocean 0.5). ``hyperdiffuse_multi`` runs kernel K3 (``kernels/hyper4.py``) on a
-CUDA tensor and ``hyperdiffuse_multi_ref`` on a CPU tensor.
+CUDA tensor, through ``Hyper4`` (an ensemble's members in the same launches),
+and ``hyperdiffuse_multi_ref`` on a CPU tensor.
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ import torch
 
 from ..grid import gradient_np
 from ..kernels import use_kernel
+from .members import refuse_grad, to_front
 
 
 def laplacian_sphere(F: torch.Tensor, dlat: float, dlon: float,
@@ -49,15 +51,41 @@ def hyperdiffuse_multi_ref(F: torch.Tensor, k4_stack: torch.Tensor, dt: float,
     return hyperdiffuse(F, k4_stack, dt, n_substeps, dlat, dlon, coslat[None], a)
 
 
+class Hyper4(torch.autograd.Function):
+    """K3 on a CUDA tensor; under ``torch.func.vmap`` the batched form, one
+    launch a substep for every member (``ops.members``)."""
+
+    @staticmethod
+    def forward(F, k4_stack, dt, n_substeps, dlat, dlon, coslat, a):
+        from ..kernels.hyper4 import hyperdiffuse_cuda
+        k4 = torch.broadcast_to(k4_stack, F.shape).contiguous()
+        return hyperdiffuse_cuda(F, k4, dt, n_substeps, dlat, dlon, coslat, a)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def vmap(info, in_dims, F, k4_stack, dt, n_substeps, dlat, dlon, coslat, a):
+        from ..kernels.hyper4 import hyperdiffuse_batched_cuda
+        f_dim, k4_dim, c_dim = in_dims[0], in_dims[1], in_dims[6]
+        fields = (F if f_dim is None else F.movedim(f_dim, 0)).shape[-3:]
+        k4 = to_front(k4_stack, k4_dim)
+        # a shared k4 stays one [M, H, W] stack for every member
+        k4 = torch.broadcast_to(k4, (() if k4_dim is None else k4.shape[:1]) + fields)
+        return hyperdiffuse_batched_cuda(to_front(F, f_dim), k4.contiguous(), dt, n_substeps,
+                                         dlat, dlon, to_front(coslat, c_dim), a,
+                                         info.batch_size), 0
+
+
 def hyperdiffuse_multi(F: torch.Tensor, k4_stack: torch.Tensor, dt: float,
                        n_substeps: int, dlat: float, dlon: float,
                        coslat: torch.Tensor, a: float) -> torch.Tensor:
     """Hyperdiffusion of stacked fields [M, H, W] in one pass."""
-    if use_kernel(F):
-        from ..kernels.hyper4 import hyperdiffuse_cuda
-        k4 = torch.broadcast_to(k4_stack, F.shape).contiguous()
-        return hyperdiffuse_cuda(F, k4, dt, n_substeps, dlat, dlon, coslat, a)
-    return hyperdiffuse_multi_ref(F, k4_stack, dt, n_substeps, dlat, dlon, coslat, a)
+    if not use_kernel(F):
+        return hyperdiffuse_multi_ref(F, k4_stack, dt, n_substeps, dlat, dlon, coslat, a)
+    refuse_grad("hyper4", F, k4_stack, coslat)
+    return Hyper4.apply(F, k4_stack, dt, n_substeps, dlat, dlon, coslat, a)
 
 
 def shapiro_filter(F: torch.Tensor, n: int = 2) -> torch.Tensor:

@@ -300,7 +300,8 @@ def route_event(rs: RoutingStatic, acc: torch.Tensor, lake_volume: torch.Tensor)
         lake_volume = lake_volume.clone()
         for a, b in rs.store_rounds:
             lake_volume.index_add_(0, rs.store_slot[a:b], stored[a:b])
-    flow_accum = torch.zeros_like(acc).index_copy_(0, rs.order, carry)
+    # out of place: functorch batches index_copy, not index_copy_
+    flow_accum = torch.zeros_like(acc).index_copy(0, rs.order, carry)
     return flow_accum, (mass_in, ocean_out, store_out), lake_volume
 
 

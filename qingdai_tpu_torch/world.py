@@ -70,6 +70,13 @@ class QingdaiWorld:
                  device="cuda"):
         self.cfg = cfg or SimConfig.from_env()
         self.verbose = verbose
+        if self.cfg.run.restart_out and not ncio.have_netcdf():
+            # refused now rather than after the whole run, which would end
+            # with nothing written
+            raise RuntimeError(
+                f"QD_RESTART_OUT={self.cfg.run.restart_out!r} writes a NetCDF restart, and "
+                "neither h5py nor netCDF4 can be imported here; unset it and resume from "
+                f"the autosave's torch.save sidecar, data/{SIDECAR}")
         self.device = resolve_device(device)
         self.day_seconds = const.DAY_SECONDS
         self.data_dir = os.path.abspath("data")

@@ -1,6 +1,7 @@
-"""The four CUDA kernels against their plain PyTorch versions on the card.
-K1's fields, K2's cases and K4's operands are those ``chip_smoke.py`` holds
-them to.
+"""The four CUDA kernels against their plain PyTorch versions on the card,
+and their batched forms (an ensemble's members in one launch) against single
+calls. K1's fields, K2's cases, K4's operands and the batched forms' inputs
+are those ``chip_smoke.py`` holds them to.
 
 Marked ``gpu``: without a CUDA device every test skips. The file imports no
 JAX, so on a machine with a card and without JAX it runs alone with
@@ -13,12 +14,12 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import k1_cases, k2_check, k4_operands
+from chip_smoke import SHAREABLE, batched_equal, batched_pairs, k1_cases, k2_check, k4_operands
 from qingdai_tpu_torch import constants as const
 from qingdai_tpu_torch import kernels, ocean
 from qingdai_tpu_torch.grid import make_grid
 from qingdai_tpu_torch.kernels import advect_bilinear, hyper4, median_pos, ocean_substeps
-from qingdai_tpu_torch.ops import reductions, stencil
+from qingdai_tpu_torch.ops import advect, reductions, stencil
 
 pytestmark = pytest.mark.gpu
 
@@ -257,3 +258,60 @@ def test_kernels_replay_in_a_cuda_graph(dev):
     graph.replay()
     torch.cuda.synchronize()
     assert all(torch.equal(x, y) for x, y in zip(captured, eager))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("B", [1, 3, 8])
+@pytest.mark.parametrize("shared", [(), SHAREABLE], ids=["own", "shared"])
+def test_batched_forms_equal_single_calls(dev, dtype, B, shared):
+    """Each batched form at the main path's shapes equals B single calls bit
+    for bit, in one launch of its own (K3 and K4 two substeps); with
+    ``shared`` the inputs a member may share are given once, unbatched."""
+    pairs = batched_pairs(dev, dtype, B, shared)
+    before = kernels.launch_counts()
+    batched_equal(pairs, f"{dtype} B={B}")
+    after = kernels.launch_counts()
+    for name in pairs:
+        assert after[name + "_batched"] == before[name + "_batched"] + 1, name
+        assert after[name] == before[name] + B, name
+
+
+def test_vmap_reaches_the_batched_forms(dev):
+    """Under torch.func.vmap each op launches its kernel's batched form once
+    for all members, and no single form."""
+    r = np.random.default_rng(8)
+    g = make_grid(H, W, device=dev, dtype=torch.float32)
+    x = _on(dev, np.abs(r.standard_normal((4, H, W))), torch.float32)
+    F = _on(dev, r.standard_normal((4, 5, H, W)), torch.float32)
+    k4 = (0.02 * g.k4_map_unit / 300.0)[None].expand(5, H, W)
+    calls = {
+        "median_pos": lambda: torch.func.vmap(reductions.masked_median_of_positive)(x),
+        "advect_bilinear": lambda: torch.func.vmap(
+            lambda f, u: advect.advect_semilag_multi(f, u, u, 300.0, A, g.dlat_rad, g.dlon_rad,
+                                                     g.coslat_cap_tiny))(F[:, :2], 50.0 * x),
+        "hyper4": lambda: torch.func.vmap(
+            lambda f: stencil.hyperdiffuse_multi(f, k4, 300.0, 1, g.dlat_rad, g.dlon_rad,
+                                                 g.coslat_cap_02, A))(F),
+    }
+    for name, call in calls.items():
+        before = kernels.launch_counts()
+        call()
+        after = kernels.launch_counts()
+        assert {k: after[k] - before[k] for k in after if after[k] != before[k]} == {
+            name + "_batched": 1}, name
+
+
+def test_batched_wrappers_refuse_bad_input(dev):
+    x = torch.ones((3, H, W), device=dev)
+    with pytest.raises(ValueError):
+        median_pos.median_pos_batched_cuda(x, 4)                 # 3 members, not 4
+    with pytest.raises(ValueError):
+        median_pos.median_pos_batched_cuda(x, 0)
+    with pytest.raises(ValueError):
+        advect_bilinear.advect_bilinear_batched_cuda(x[:, None], x[:, :, :-1].contiguous(), x,
+                                                     300.0, A, 0.1, 0.1, x[0], 3)
+    with pytest.raises(ValueError):
+        hyper4.hyperdiffuse_batched_cuda(x[:, None], x[:, None, ::2], 300.0, 1, 0.1, 0.1,
+                                         x[0], 1.0, 3)
+    with pytest.raises(RuntimeError, match="no backward"):
+        reductions.masked_median_of_positive(x[0].clone().requires_grad_())

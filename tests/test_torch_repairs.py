@@ -42,7 +42,8 @@ def test_port_sources_import_no_jax():
     assert {"qingdai_tpu_torch/io/netcdf.py", "qingdai_tpu_torch/io/ncdataset.py",
             "qingdai_tpu_torch/io/checkpoint.py", "qingdai_tpu_torch/world.py",
             "qingdai_tpu_torch/routing.py", "qingdai_tpu_torch/hydro_network.py",
-            "qingdai_tpu_torch/run_simulation.py"} <= names
+            "qingdai_tpu_torch/run_simulation.py", "qingdai_tpu_torch/ensemble.py",
+            "qingdai_tpu_torch/run_ensemble.py", "qingdai_tpu_torch/ops/members.py"} <= names
     bad = [(p.relative_to(REPO).as_posix(), m) for p in _port_sources()
            for m in _absolute_imports(p) if m.split(".")[0] in FORBIDDEN]
     assert bad == []

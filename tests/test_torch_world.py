@@ -7,6 +7,8 @@
   resume equals an uninterrupted run bit for bit across a daily block with
   mutation on, with and without a NetCDF library; a corrupt or stale sidecar
   falls back to the NetCDF restart.
+- ``QD_RESTART_OUT`` where no NetCDF library imports is refused when the
+  world is built, not after its run; with one, the run ends by writing it.
 - ``python -m qingdai_tpu_torch.run_simulation --device cpu`` runs 2 steps.
 No JAX chunk is jitted here.
 """
@@ -224,3 +226,59 @@ def test_nancheck_names_non_finite_leaves(tiny_env, capsys):
     w._nancheck()
     out = capsys.readouterr().out
     assert "[NanCheck]" in out and "land.W_land" in out and "albedo" not in out
+
+
+def _without_netcdf(monkeypatch):
+    """Make h5py and netCDF4 fail to import, as on a machine without them
+    (h5py is installed here, so patching ``have_netcdf`` alone would hide
+    the fault: the writers would still find it)."""
+    monkeypatch.setitem(sys.modules, "h5py", None)
+    monkeypatch.setitem(sys.modules, "netCDF4", None)
+    monkeypatch.delitem(sys.modules, "qingdai_tpu_torch.io.ncdataset", raising=False)
+    monkeypatch.delattr(sys.modules["qingdai_tpu_torch.io"], "ncdataset", raising=False)
+
+
+def test_restart_out_without_netcdf_is_refused_at_build(tiny_env, monkeypatch):
+    """Without a NetCDF library the final restart cannot be written, so
+    QD_RESTART_OUT is refused when the world is built, naming the missing
+    libraries and the sidecar; without QD_RESTART_OUT the world builds and
+    runs there."""
+    _without_netcdf(monkeypatch)
+    assert not tnc.have_netcdf()
+    with pytest.raises(ImportError):
+        tnc.Dataset("probe.nc", "w")                  # what save_restart would meet
+    monkeypatch.setenv("QD_RESTART_OUT", "final.nc")
+    with pytest.raises(RuntimeError, match="h5py nor netCDF4.*world_ckpt.pt"):
+        _world()
+    monkeypatch.delenv("QD_RESTART_OUT")
+    w = _world()
+    w.run(duration_seconds=w.model.dt)
+    assert w.state.clock.step_idx == 1 and not os.path.exists("final.nc")
+
+
+def test_restart_out_written_at_the_end(tiny_env, monkeypatch):
+    """With a NetCDF library the run ends by writing QD_RESTART_OUT, which
+    loads back to the final state's fields."""
+    monkeypatch.setenv("QD_RESTART_OUT", "final.nc")
+    w = _world()
+    w.run(duration_seconds=2 * w.model.dt)
+    assert os.path.exists("final.nc")
+    with h5py.File("final.nc", "r") as f:
+        np.testing.assert_array_equal(np.asarray(f["Ts"]), w.state.ocean.sst.numpy())
+
+
+def test_ensemble_cli_runs_on_the_cpu(tmp_path):
+    """``python -m qingdai_tpu_torch.run_ensemble --device cpu``: two members
+    at 19×36, a 12-step warm chunk and a 12-step timed one."""
+    import json
+    env = {k: v for k, v in os.environ.items() if not k.startswith("QD_")}
+    env.update(PYTHONPATH=str(REPO))
+    out = subprocess.run([sys.executable, "-m", "qingdai_tpu_torch.run_ensemble", "--members",
+                          "2", "--days", "0.05", "--chunk-days", "0.05", "--nlat", "19",
+                          "--nlon", "36", "--device", "cpu", "--json"], cwd=tmp_path, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    summary = json.loads(out.stdout.strip().splitlines()[-1])
+    assert summary["members"] == 2 and summary["device"] == "cpu"
+    assert summary["value"] == pytest.approx(2 * summary["sim_years_per_hour"])
+    assert summary["spread"]["Ts_mean_spread"] > 0.0
