@@ -59,6 +59,23 @@ Phases, each of which raises on failure (exit code non-zero):
      NetCDF library (h5py, netCDF4), so the autosave writes the sidecar and
      the JSON files and skips the NetCDF set, and the resume reads the
      sidecar alone.
+  7. the adjoint on the card (``qingdai_tpu_torch.adjoint``). 7.1: each
+     kernel's backward (its plain version's VJP): ``gradcheck`` in float64
+     on a 19×36 grid (every input, relative perturbations, K4 two
+     substeps), and at the main path's shapes the Function's VJP against
+     the plain version's (float32 within 1e-5, float64 1e-12 of the largest
+     |grad|), with each backward's device ms a call beside the kernel's
+     forward and its bound. 7.2: the flagship planet warmed one planetary
+     day, ``make_value_and_grad`` over 24 steps (segment 4) of gh_factor,
+     the friction map and the initial T_s map in float32: J, dJ/d gh_factor
+     > 0 and the maps finite, K1–K4 launched 2 × (3, 3, 1, 1) times a step
+     (forward and the checkpoint's recompute); ms per window-step of the
+     value and of the gradient, their ratio, peak device memory, device ms
+     and launches a window-step and the top kernels by device time. 7.3:
+     the same window in float64, printed with the pole rows' share of the
+     initial-T_s map, and dJ/d gh_factor in float32 against float64 on 12
+     steps within 2e-2. 7.4: a 6-step float64 window against its central
+     difference (1e-4) and against the same gradient on the CPU (1e-8).
 The line before the last is the kernels' JSON record, the four single forms
 (launches from phase 4's main path) and the four batched forms (launches
 from phase 4b's day at B = 8); the last line is
@@ -1282,6 +1299,303 @@ def phase6_world(label):
     return ms_run
 
 
+# ------------------------------------------------------------- phase 7
+
+ADJ_STEPS = 24          # the flagship window of phase 7.2-7.3
+ADJ_SEGMENT = 4
+ADJ_CMP_STEPS = 12      # the window whose float32 and float64 gradients are held
+ADJ_FD_STEPS = 6        # the float64 window held against FD and the CPU
+ADJ_FD_EPS = 1e-6
+GRAD_TOL = {torch.float64: 1e-12, torch.float32: 1e-5}
+GRADCHECK_SHAPE = (19, 36)
+# the plain gather's backward (index_select's) adds with atomics on the card,
+# so two backwards of one cotangent may differ in the last bits
+GRADCHECK_NONDET = 1e-10
+
+
+def grad_cases(dev, dtype, shape=None):
+    """Each kernel's (dispatcher, plain version, inputs, which inputs the
+    adjoint's main path differentiates) on the card: the main path's
+    shapes (K1 one precipitation-like field, K2 M = 2, K3 M = 5 one substep,
+    K4 SST + 10 tracers one substep), or a small grid (K4 two substeps
+    without tracers), where every input is x0·m with m = 1 the variable, so
+    that finite differences are relative (K3's and K4's k4 maps are ~1e20),
+    and each output row is projected on seeded weights along longitude."""
+    from qingdai_tpu_torch import constants as const
+    from qingdai_tpu_torch import ocean
+    from qingdai_tpu_torch.grid import make_grid
+    from qingdai_tpu_torch.ops import advect, reductions, stencil
+
+    r = np.random.default_rng(70)
+    small = shape is not None
+    shape = shape or (H, W)
+    g = make_grid(*shape, device=dev, dtype=dtype)
+    sc = (300.0, const.PLANET_RADIUS, g.dlat_rad, g.dlon_rad)
+    if small:       # no entry at 0, where the set of positives jumps
+        x = np.where(r.random(shape) < 0.5, -1.0, 1.0) * (np.abs(r.standard_normal(shape)) + 0.01)
+    else:
+        x = np.where(r.random(shape) < 0.6, 0.0, np.abs(r.standard_normal(shape)) * 1e-5)
+    k4 = (0.02 * g.k4_map_unit / 300.0)[None] * on(dev, [[[1.0]], [[1.0]], [[0.5]], [[0.5]],
+                                                         [[0.25]]], dtype)
+    hsc = (300.0, 1, g.dlat_rad, g.dlon_rad, g.coslat_cap_02, const.PLANET_RADIUS)
+    k4_ops = (k4_operands(dev, dtype, 0, 2, 1, 5.0e3, shape=shape) if small
+              else k4_operands(dev, dtype, N_SPECIES, 1, 1, 5.0e3, shape=shape))
+    *ops, params = k4_ops
+    cases = {
+        "median_pos": (lambda x: reductions.masked_median_of_positive(x, 1e-6),
+                       lambda x: reductions.masked_median_of_positive_ref(x, 1e-6),
+                       [on(dev, x, dtype)], [True]),
+        "advect_bilinear": (
+            lambda F, u, v: advect.advect_semilag_multi(F, u, v, *sc, g.coslat_cap_tiny),
+            lambda F, u, v: advect.advect_semilag_multi_ref(F, u, v, *sc, g.coslat_cap_tiny),
+            [on(dev, 280.0 + 20.0 * r.standard_normal((2,) + shape), dtype),
+             on(dev, np.clip(60.0 * r.standard_normal(shape), -200, 200), dtype),
+             on(dev, np.clip(30.0 * r.standard_normal(shape), -200, 200), dtype)],
+            [True, True, True]),
+        "hyper4": (lambda F, k: stencil.hyperdiffuse_multi(F, k, *hsc),
+                   lambda F, k: stencil.hyperdiffuse_multi_ref(F, k, *hsc),
+                   [on(dev, 30.0 * r.standard_normal((5,) + shape), dtype),
+                    k4.expand((5,) + shape).contiguous()], [True, False]),
+        "ocean_substeps": (lambda *o: ocean.ocean_substeps(*o, **params),
+                           lambda *o: ocean.ocean_substeps_plain(*o, **params),
+                           list(ops), [True, True, True, False]),
+    }
+    if small:
+        w = on(dev, r.standard_normal(shape[1:]), dtype)
+
+        def relative(fn, xs):
+            def call(*m):
+                out = _tuple(fn(*(x * mm for x, mm in zip(xs, m))))
+                # each output row projected on seeded weights along longitude:
+                # the analytical Jacobian takes one backward per output
+                return tuple(o if o.dim() == 0 else o @ w for o in out)
+            return call
+        cases = {name: (relative(fn, xs), None, [torch.ones_like(x) for x in xs], need)
+                 for name, (fn, _, xs, need) in cases.items()}
+    return cases
+
+
+def _tuple(out):
+    return out if isinstance(out, tuple) else (out,)
+
+
+def backward_work(name, xs, need, outs):
+    """Bytes of one backward: the saved inputs and the output cotangents
+    read once, the input cotangents the main path asks for written once."""
+    read = sum(x.numel() * x.element_size() for x in xs)
+    read += sum(o.numel() * o.element_size() for o in outs)
+    return read + sum(x.numel() * x.element_size() for x, n in zip(xs, need) if n)
+
+
+def phase7_backwards(dev, label, rec):
+    """7.1: each kernel's backward on the card: gradcheck in float64 on a
+    19×36 grid; the Function's VJP against the plain version's at the main
+    path's shapes (float32 and float64); device ms of a backward a call
+    beside the forward's."""
+    from qingdai_tpu_torch import kernels
+
+    for name, (fn, _, ms, _) in grad_cases(dev, torch.float64, GRADCHECK_SHAPE).items():
+        t0 = time.perf_counter()
+        ok = torch.autograd.gradcheck(fn, [m.requires_grad_(True) for m in ms],
+                                      nondet_tol=GRADCHECK_NONDET)
+        if not ok:
+            raise AssertionError(f"gradcheck of {name} failed")
+        print(f"phase 7: gradcheck {name} float64 {GRADCHECK_SHAPE[0]}x{GRADCHECK_SHAPE[1]} "
+              "(every input, relative perturbations, output rows projected along longitude, "
+              f"K4 two substeps): passed in {time.perf_counter() - t0:.2f} s")
+    for dtype in (torch.float32, torch.float64):
+        for name, (fn, plain, xs, need) in grad_cases(dev, dtype).items():
+            r = np.random.default_rng(71)
+            ins = [x.clone().requires_grad_(True) for x in xs]
+            kernels.reset_launch_counts()
+            outs = _tuple(fn(*ins))
+            if kernels.launch_counts()[name] != 1:
+                raise AssertionError(f"{name}: the forward did not launch the kernel")
+            cts = [on(dev, r.standard_normal(tuple(o.shape)), dtype) for o in outs]
+            got = torch.autograd.grad(outs, ins, cts)
+            ref = torch.autograd.grad(_tuple(plain(*ins)), ins, cts)
+            worst = 0.0
+            for g_, r_ in zip(got, ref):
+                scale = float(r_.abs().max())
+                err = float((g_ - r_).abs().max()) / max(scale, 1e-300)
+                worst = max(worst, err)
+            if not worst <= GRAD_TOL[dtype]:
+                raise AssertionError(f"{name} {dtype}: the Function's VJP differs from the "
+                                     f"plain version's by {worst} > {GRAD_TOL[dtype]}")
+            line = (f"phase 7: {name} {dtype} main-path shape: Function VJP against the plain "
+                    f"VJP, every input, max|diff|/max|grad| {worst:.2e} (bound "
+                    f"{GRAD_TOL[dtype]:g})")
+            if dtype == torch.float32:
+                ins = [x.clone().requires_grad_(n) for x, n in zip(xs, need)]
+                outs = _tuple(fn(*ins))
+                wrt = [x for x in ins if x.requires_grad]
+
+                def backward(outs=outs, wrt=wrt, cts=cts):
+                    torch.autograd.grad(outs, wrt, cts, retain_graph=True)
+                b_ms, b_n = device_profile(backward, what=f"{name}'s backward")
+                nbytes = backward_work(name, xs, need, outs)
+                rec[name].update(bwd_ms=b_ms, bwd_launches=b_n,
+                                 bwd_bound_ms=nbytes / PEAK_BYTES * 1e3)
+                line += (f"; backward (the plain version recomputed and its VJP, the inputs "
+                         f"the adjoint differentiates) {b_ms:.5f} device ms a call, "
+                         f"{b_n:g} device launches, against the kernel's forward "
+                         f"{rec[name]['ms']:.5f}; backward bound {nbytes} B "
+                         f"{rec[name]['bwd_bound_ms']:.5f} ms [{label}]")
+            print(line, flush=True)
+
+
+def pole_rows(gmap):
+    """(max |g| on the two pole rows, max |g| on the other rows) of a map."""
+    a = gmap.abs()
+    return float(torch.maximum(a[0].max(), a[-1].max())), float(a[1:-1].max())
+
+
+def phase7_adjoint(dev, label, rec):
+    """7.2-7.4: the flagship planet's gradient on the card (module
+    docstring, phase 7)."""
+    from qingdai_tpu_torch import adjoint as A
+    from qingdai_tpu_torch import entry, kernels
+    from qingdai_tpu_torch import model as M
+    from qingdai_tpu_torch.convert import world_from_numpy
+
+    # 7.2: float32, 24 steps, segment 4, from one warm planetary day: a
+    # scalar and two maps
+    mdl, flagship = entry.build_world(H, W, extra_env=MAIN)
+    with torch.no_grad():
+        flagship, _ = M.make_chunk_fn(mdl, STEPS_PER_DAY)(flagship)
+    params = {"gh_factor": mdl.cfg.energy.gh_factor, "friction": mdl.static.friction,
+              "state.atmos.T_s": flagship.atmos.T_s}
+    vg = A.make_value_and_grad(mdl, ADJ_STEPS, segment=ADJ_SEGMENT)
+    val = A.make_value(mdl, ADJ_STEPS, segment=ADJ_SEGMENT)
+    val(params, flagship)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    (J, (_, series)), g = vg(params, flagship)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    want = {name: 2 * per_step * ADJ_STEPS for name, _, _, per_step in KERNELS}
+    if {k: counts[k] for k in want} != want:
+        raise AssertionError(f"phase 7: kernel launches in value_and_grad {counts} != {want} "
+                             "(forward and the checkpoint's recompute)")
+    dJ = float(g["gh_factor"])
+    fmap = g["friction"]
+    if not (np.isfinite(float(J)) and np.isfinite(dJ) and dJ > 0.0 and finite(fmap)
+            and finite(g["state.atmos.T_s"])):
+        raise AssertionError(f"phase 7: J {float(J)}, dJ/d gh_factor {dJ}, maps finite "
+                             f"{finite(fmap)}, {finite(g['state.atmos.T_s'])}")
+    ts = series["Ts_mean"].cpu().numpy()
+    if not (series["Ts_mean"].shape == (ADJ_STEPS,) and 150.0 <= ts.min() <= ts.max() <= 400.0):
+        raise AssertionError(f"phase 7: Ts_mean series {ts}")
+    poles32 = pole_rows(g["state.atmos.T_s"])
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t) * 1e3 / ADJ_STEPS
+
+    times = {"value": [], "value_and_grad": []}
+    for _ in range(2):
+        times["value"].append(timed(lambda: val(params, flagship)))
+        times["value_and_grad"].append(timed(lambda: vg(params, flagship)))
+    v_ms, vg_ms = (statistics.median(times[k]) for k in ("value", "value_and_grad"))
+    prof = {k: profile_steps(fn, ADJ_STEPS, f"the adjoint's {k}")
+            for k, fn in (("value", lambda: val(params, flagship)),
+                          ("value_and_grad", lambda: vg(params, flagship)))}
+    top = adjoint_top_ops(lambda: vg(params, flagship))
+    print(f"phase 7: flagship planet 181x360 f32, {ADJ_STEPS}-step window (segment "
+          f"{ADJ_SEGMENT}) from one warm planetary day: J = Ts_mean {float(J):.6f} K, "
+          f"dJ/d gh_factor {dJ:.6e} K, friction map finite (max|dJ/dfriction| "
+          f"{float(fmap.abs().max()):.6e}); kernel launches in value_and_grad {counts} "
+          f"(forward + the checkpoint's recompute); first call {first_s:.2f} s [{label}]")
+    print(f"phase 7: adjoint ms per window-step: value {v_ms:.4f} ({times['value']}), "
+          f"value_and_grad {vg_ms:.4f} ({times['value_and_grad']}), ratio "
+          f"{vg_ms / v_ms:.3f}; peak device memory in value_and_grad {peak / 2**30:.3f} GiB; "
+          f"device a window-step: value {prof['value'][0]:.4f} ms in {prof['value'][1]:.1f} "
+          f"launches (idle {1 - prof['value'][0] / v_ms:.3f}), value_and_grad "
+          f"{prof['value_and_grad'][0]:.4f} ms in {prof['value_and_grad'][1]:.1f} launches "
+          f"(idle {1 - prof['value_and_grad'][0] / vg_ms:.3f}) [{label}]")
+    print("phase 7: value_and_grad's device time by op, ms a window-step: "
+          + "; ".join(f"{n} {ms / ADJ_STEPS:.4f} ({c / ADJ_STEPS:.1f} calls)"
+                      for n, ms, c in top) + f" [{label}]")
+    bwd = {name: per_step * rec[name]["bwd_ms"] for name, _, _, per_step in KERNELS}
+    print("phase 7: the kernels' backwards at their calls a step (phase 7.1's device ms a "
+          "call × 3, 3, 1, 1): " + ", ".join(f"{k} {v:.4f}" for k, v in bwd.items())
+          + f", together {sum(bwd.values()):.4f} ms a window-step of the gradient's "
+          f"{prof['value_and_grad'][0]:.4f} [{label}]", flush=True)
+    del vg, val, g, fmap, series
+
+    # 7.3: float32 against float64. Over the 24 steps the adjoint grows from
+    # the pole rows (their cos cap of 1e-6 puts ~2700 cells of departure
+    # per m/s of wind), faster in float64; it is printed there, and the bound
+    # is held on the 12-step window
+    m64, _ = entry.build_world(H, W, extra_env=MAIN, dtype=torch.float64)
+    s64 = world_from_numpy(flagship, dev, torch.float64)
+    g0 = m64.cfg.energy.gh_factor
+    (_, _), g64 = A.make_value_and_grad(m64, ADJ_STEPS, segment=ADJ_SEGMENT)(
+        {"gh_factor": g0, "state.atmos.T_s": s64.atmos.T_s}, s64)
+    dJ64 = float(g64["gh_factor"])
+    poles64 = pole_rows(g64["state.atmos.T_s"])
+    print(f"phase 7: {ADJ_STEPS} steps, dJ/d gh_factor float32 {dJ:.9e}, float64 "
+          f"{dJ64:.12e} (not held); max|dJ/dT_s0| on the pole rows against the other rows: "
+          f"float32 {poles32[0]:.3e} / {poles32[1]:.3e}, float64 {poles64[0]:.3e} / "
+          f"{poles64[1]:.3e}")
+    del g64
+    dJs = {}
+    for dtype, (mm, ss) in ((torch.float32, (mdl, flagship)), (torch.float64, (m64, s64))):
+        (_, _), gc = A.make_value_and_grad(mm, ADJ_CMP_STEPS, segment=ADJ_SEGMENT)(
+            {"gh_factor": g0}, ss)
+        dJs[dtype] = float(gc["gh_factor"])
+    rel32 = abs(dJs[torch.float32] - dJs[torch.float64]) / abs(dJs[torch.float64])
+    print(f"phase 7: {ADJ_CMP_STEPS} steps, dJ/d gh_factor float32 "
+          f"{dJs[torch.float32]:.9e} against float64 {dJs[torch.float64]:.12e}: relative "
+          f"{rel32:.3e} (bound 2e-2)")
+    if not rel32 <= 2e-2:
+        raise AssertionError(f"phase 7: float32 and float64 gradients differ by {rel32}")
+
+    # 7.4: a 6-step float64 window against its central difference and the CPU
+    vg6 = A.make_value_and_grad(m64, ADJ_FD_STEPS, segment=3)
+    (_, _), g6 = vg6({"gh_factor": g0}, s64)
+    val6 = A.make_value(m64, ADJ_FD_STEPS, segment=3)
+    Jp, _ = val6({"gh_factor": g0 + ADJ_FD_EPS}, s64)
+    Jm, _ = val6({"gh_factor": g0 - ADJ_FD_EPS}, s64)
+    fd = (float(Jp) - float(Jm)) / (2 * ADJ_FD_EPS)
+    card = float(g6["gh_factor"])
+    t0 = time.perf_counter()
+    mcpu, _ = entry.build_world(H, W, extra_env=MAIN, device="cpu", dtype=torch.float64)
+    (_, _), gc = A.make_value_and_grad(mcpu, ADJ_FD_STEPS, segment=3)(
+        {"gh_factor": g0}, world_from_numpy(flagship, "cpu", torch.float64))
+    cpu = float(gc["gh_factor"])
+    rel_fd, rel_cpu = abs(card - fd) / abs(fd), abs(card - cpu) / abs(cpu)
+    print(f"phase 7: {ADJ_FD_STEPS}-step float64 window: dJ/d gh_factor on the card "
+          f"{card:.12e}, central difference (eps {ADJ_FD_EPS:g}) {fd:.12e}: relative "
+          f"{rel_fd:.3e} (bound 1e-4); on the CPU {cpu:.12e} "
+          f"({time.perf_counter() - t0:.1f} s): relative {rel_cpu:.3e} (bound 1e-8) [{label}]")
+    if not rel_fd <= 1e-4:
+        raise AssertionError(f"phase 7: card gradient and central difference differ by {rel_fd}")
+    if not rel_cpu <= 1e-8:
+        raise AssertionError(f"phase 7: card and CPU float64 gradients differ by {rel_cpu}")
+    return {"value_ms": v_ms, "value_and_grad_ms": vg_ms, "peak_bytes": peak}
+
+
+def adjoint_top_ops(fn, n=8):
+    """PyTorch's ops in one ``fn()`` by their kernels' device time, most
+    first: (op name, device ms, calls)."""
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILE_WAIT_S)
+        fn()
+        torch.cuda.synchronize()
+    rows = [(e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
+            if e.self_device_time_total > 0]
+    return sorted(rows, key=lambda t: -t[1])[:n]
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1319,6 +1633,8 @@ def main():
     print(f"phase 5: card and CPU float64 steps agree to {worst:.2e} relative")
     del st
     phase6_world(label)
+    phase7_backwards(dev, label, rec)
+    phase7_adjoint(dev, label, rec)
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels_line = [{"name": name + form, "route": "cuda", "source": src, "replaces": rep,

@@ -168,6 +168,19 @@ def mutation_due(model: Model, clock: ClockState) -> bool:
     return _day_end(model, clock)[1]
 
 
+def mutation_schedule(model: Model, clock: ClockState, n_steps: int) -> list:
+    """``mutation_due`` for each of the next ``n_steps`` steps from
+    ``clock``, the day accumulator walked on the host as the step walks it."""
+    day_r = round_to(model.day_seconds, model.dtype)
+    due = []
+    for _ in range(n_steps):
+        due.append(mutation_due(model, clock))
+        accum_t, is_daily = _day_end(model, clock)
+        clock = dataclasses.replace(
+            clock, accum_t_day=round_to(accum_t - day_r, model.dtype) if is_daily else accum_t)
+    return due
+
+
 def make_step_fn(model: Model, with_diags: bool = True):
     """Returns step(state, draws=None) -> (state, diag dict of 0-d tensors).
 

@@ -22,7 +22,7 @@ from .config import OceanConfig
 from .grid import Grid
 from .kernels import use_kernel
 from .ops import safegrad
-from .ops.members import refuse_grad, to_front
+from .ops.members import plain_vjp, refuse_grad, to_front
 from .ops.advect import advect_semilag_multi, bilinear_wrap_gather_multi, departure_indices
 from .ops.reductions import area_mean
 from .ops.stencil import (hyperdiffuse_multi, hyperdiffuse_multi_ref, laplacian_sphere,
@@ -217,9 +217,11 @@ def ocean_substeps_plain(mom, st, forc, geo, **params):
 
 
 class OceanSubsteps(torch.autograd.Function):
-    """K4 on a CUDA tensor; under ``torch.func.vmap`` the batched form, one
-    cooperative launch for every member (``ops.members``). ``params`` is the
-    dict of keyword parameters."""
+    """K4 on a CUDA tensor; its gradient with respect to the four stacks
+    the plain version's VJP (all ``n_sub`` substeps recomputed in the plain
+    ops); under ``torch.func.vmap`` the batched form, one cooperative launch
+    for every member (``ops.members``). ``params`` is the dict of keyword
+    parameters."""
 
     @staticmethod
     def forward(mom, st, forc, geo, params):
@@ -228,11 +230,18 @@ class OceanSubsteps(torch.autograd.Function):
 
     @staticmethod
     def setup_context(ctx, inputs, output):
-        pass
+        ctx.save_for_backward(*inputs[:4])
+        ctx.params = inputs[4]
+
+    @staticmethod
+    def backward(ctx, g_mom, g_st):
+        return plain_vjp(lambda *ops: ocean_substeps_plain(*ops[:4], **ops[4]),
+                         (*ctx.saved_tensors, ctx.params), (g_mom, g_st), ctx.needs_input_grad)
 
     @staticmethod
     def vmap(info, in_dims, mom, st, forc, geo, params):
         from .kernels.ocean_substeps import ocean_substeps_batched_cuda
+        refuse_grad("ocean_substeps", mom, st, forc, geo)
         ops = [to_front(t, d) for t, d in zip((mom, st, forc, geo), in_dims)]
         return ocean_substeps_batched_cuda(*ops, info.batch_size, **params), (0, 0)
 
@@ -241,7 +250,6 @@ def ocean_substeps(mom, st, forc, geo, **params):
     """K4 on a CUDA tensor, its plain version on a CPU tensor."""
     if not use_kernel(st):
         return ocean_substeps_plain(mom, st, forc, geo, **params)
-    refuse_grad("ocean_substeps", mom, st, forc, geo)
     return OceanSubsteps.apply(mom, st, forc, geo, params)
 
 

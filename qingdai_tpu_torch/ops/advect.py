@@ -17,7 +17,7 @@ from __future__ import annotations
 import torch
 
 from ..kernels import use_kernel
-from .members import refuse_grad, to_front
+from .members import plain_vjp, refuse_grad, to_front
 
 
 def bilinear_wrap_gather_multi(fields: torch.Tensor, dep_j: torch.Tensor,
@@ -69,8 +69,11 @@ def advect_semilag_multi_ref(fields: torch.Tensor, u: torch.Tensor, v: torch.Ten
 
 
 class AdvectBilinear(torch.autograd.Function):
-    """K2 on a CUDA tensor; under ``torch.func.vmap`` the batched form, one
-    launch for every member (``ops.members``)."""
+    """K2 on a CUDA tensor; its gradient with respect to the fields, the
+    winds and the cos map the plain version's VJP (the winds' reaches them
+    through the fractional parts of the departure points, ``floor`` passes
+    none, as under ``jax.grad``); under ``torch.func.vmap`` the batched
+    form, one launch for every member (``ops.members``)."""
 
     @staticmethod
     def forward(fields, u, v, dt, a, dlat, dlon, coslat):
@@ -79,11 +82,20 @@ class AdvectBilinear(torch.autograd.Function):
 
     @staticmethod
     def setup_context(ctx, inputs, output):
-        pass
+        fields, u, v, dt, a, dlat, dlon, coslat = inputs
+        ctx.save_for_backward(fields, u, v, coslat)
+        ctx.scalars = (dt, a, dlat, dlon)
+
+    @staticmethod
+    def backward(ctx, g):
+        fields, u, v, coslat = ctx.saved_tensors
+        return plain_vjp(advect_semilag_multi_ref, (fields, u, v, *ctx.scalars, coslat), (g,),
+                         ctx.needs_input_grad)
 
     @staticmethod
     def vmap(info, in_dims, fields, u, v, dt, a, dlat, dlon, coslat):
         from ..kernels.advect_bilinear import advect_bilinear_batched_cuda
+        refuse_grad("advect_bilinear", fields, u, v, coslat)
         f, uu, vv, c = (to_front(t, d) for t, d in zip((fields, u, v, coslat),
                                                      in_dims[:3] + in_dims[7:]))
         return advect_bilinear_batched_cuda(f, uu, vv, dt, a, dlat, dlon, c,
@@ -96,5 +108,4 @@ def advect_semilag_multi(fields: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
     """Advect stacked fields [M, H, W] by the same wind over dt."""
     if not use_kernel(fields):
         return advect_semilag_multi_ref(fields, u, v, dt, a, dlat, dlon, coslat)
-    refuse_grad("advect_bilinear", fields, u, v, coslat)
     return AdvectBilinear.apply(fields, u, v, dt, a, dlat, dlon, coslat)

@@ -12,7 +12,7 @@ from __future__ import annotations
 import torch
 
 from ..kernels import use_kernel
-from .members import refuse_grad, to_front
+from .members import plain_vjp, refuse_grad, to_front
 
 
 def area_mean(x: torch.Tensor, w: torch.Tensor, mask: torch.Tensor | None = None) -> torch.Tensor:
@@ -56,8 +56,11 @@ def masked_median_of_positive_ref(x: torch.Tensor, fallback: float = 1e-6) -> to
 
 
 class MedianPos(torch.autograd.Function):
-    """K1 on a CUDA tensor; under ``torch.func.vmap`` the batched form, one
-    launch for every member (``ops.members``)."""
+    """K1 on a CUDA tensor; its gradient the plain version's VJP, which is
+    the JAX package's custom JVP rule at generic points: ½(dx[i₁] + dx[i₂])
+    at the two middle order statistics, zero when nothing is positive; under
+    ``torch.func.vmap`` the batched form, one launch for every member
+    (``ops.members``)."""
 
     @staticmethod
     def forward(x, fallback):
@@ -66,11 +69,18 @@ class MedianPos(torch.autograd.Function):
 
     @staticmethod
     def setup_context(ctx, inputs, output):
-        pass
+        ctx.save_for_backward(inputs[0])
+        ctx.fallback = inputs[1]
+
+    @staticmethod
+    def backward(ctx, g):
+        return plain_vjp(masked_median_of_positive_ref, (*ctx.saved_tensors, ctx.fallback), (g,),
+                         ctx.needs_input_grad)
 
     @staticmethod
     def vmap(info, in_dims, x, fallback):
         from ..kernels.median_pos import median_pos_batched_cuda
+        refuse_grad("median_pos", x)
         return median_pos_batched_cuda(to_front(x, in_dims[0]), info.batch_size, fallback), 0
 
 
@@ -79,5 +89,4 @@ def masked_median_of_positive(x: torch.Tensor, fallback: float = 1e-6) -> torch.
     device; ``fallback`` if none is positive. Never syncs with the host."""
     if not use_kernel(x):
         return masked_median_of_positive_ref(x, fallback)
-    refuse_grad("median_pos", x)
     return MedianPos.apply(x, fallback)

@@ -2,8 +2,10 @@
 
 Each function's forward value is the plain expression; only the derivative
 changes: at the singular point it is the zero subgradient instead of inf or
-NaN. The JAX package writes these as custom JVPs; here the same rules are the
-backward passes of ``torch.autograd.Function``s. Their forward passes are
+NaN, or (``tanh_abs_ramp``) the JAX package's subgradient where the plain
+expression's autograd takes another. The JAX package writes the first
+three as custom JVPs; here every rule is the backward pass of a
+``torch.autograd.Function``. Their forward passes are
 plain expressions, so ``torch.func.vmap`` batches them by its generated rule
 (an ensemble's step runs them over the members).
 """
@@ -82,6 +84,28 @@ class _PowSafe(torch.autograd.Function):
         return dx, dp
 
 
+class _TanhAbsRamp(torch.autograd.Function):
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(x, scale):
+        return torch.clamp(torch.tanh(torch.abs(x) / scale), 0.0, 1.0)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(inputs[0], output)
+        ctx.scale = inputs[1]
+
+    @staticmethod
+    def backward(ctx, g):
+        x, y = ctx.saved_tensors
+        # jnp.abs' is +1 at 0 and jnp.clip' is ½ at a bound (here y == 0 at
+        # x == 0, or y == 1 where tanh saturates)
+        sign = torch.where(x >= 0.0, 1.0, -1.0)
+        tie = torch.where((y <= 0.0) | (y >= 1.0), 0.5, 1.0)
+        return g * tie * (1.0 - y * y) / ctx.scale * sign, None
+
+
 def quartic_root(x: torch.Tensor) -> torch.Tensor:
     """x**0.25 with a zero subgradient at x == 0 (instead of +inf)."""
     return _QuarticRoot.apply(x)
@@ -90,6 +114,13 @@ def quartic_root(x: torch.Tensor) -> torch.Tensor:
 def speed(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """sqrt(u² + v²) with a zero subgradient at u == v == 0 (not 0/0)."""
     return _Speed.apply(u, v)
+
+
+def tanh_abs_ramp(x: torch.Tensor, scale: float) -> torch.Tensor:
+    """clip(tanh(|x| / scale), 0, 1) with the JAX package's derivative at
+    x == 0, where the plain expression's autograd gives 0: |x|' = +1 and
+    the clip's ½ at its bound."""
+    return _TanhAbsRamp.apply(x, scale)
 
 
 def pow_safe(x: torch.Tensor, p) -> torch.Tensor:

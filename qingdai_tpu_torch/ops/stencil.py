@@ -14,7 +14,7 @@ import torch
 
 from ..grid import gradient_np
 from ..kernels import use_kernel
-from .members import refuse_grad, to_front
+from .members import plain_vjp, refuse_grad, to_front
 
 
 def laplacian_sphere(F: torch.Tensor, dlat: float, dlon: float,
@@ -52,8 +52,10 @@ def hyperdiffuse_multi_ref(F: torch.Tensor, k4_stack: torch.Tensor, dt: float,
 
 
 class Hyper4(torch.autograd.Function):
-    """K3 on a CUDA tensor; under ``torch.func.vmap`` the batched form, one
-    launch a substep for every member (``ops.members``)."""
+    """K3 on a CUDA tensor; its gradient with respect to F, the k4 stack
+    and the cos map the plain version's VJP; under ``torch.func.vmap`` the
+    batched form, one launch a substep for every member
+    (``ops.members``)."""
 
     @staticmethod
     def forward(F, k4_stack, dt, n_substeps, dlat, dlon, coslat, a):
@@ -63,11 +65,21 @@ class Hyper4(torch.autograd.Function):
 
     @staticmethod
     def setup_context(ctx, inputs, output):
-        pass
+        F, k4_stack, dt, n_substeps, dlat, dlon, coslat, a = inputs
+        ctx.save_for_backward(F, k4_stack, coslat)
+        ctx.scalars = (dt, n_substeps, dlat, dlon)
+        ctx.a = a
+
+    @staticmethod
+    def backward(ctx, g):
+        F, k4_stack, coslat = ctx.saved_tensors
+        return plain_vjp(hyperdiffuse_multi_ref, (F, k4_stack, *ctx.scalars, coslat, ctx.a),
+                         (g,), ctx.needs_input_grad)
 
     @staticmethod
     def vmap(info, in_dims, F, k4_stack, dt, n_substeps, dlat, dlon, coslat, a):
         from ..kernels.hyper4 import hyperdiffuse_batched_cuda
+        refuse_grad("hyper4", F, k4_stack, coslat)
         f_dim, k4_dim, c_dim = in_dims[0], in_dims[1], in_dims[6]
         fields = (F if f_dim is None else F.movedim(f_dim, 0)).shape[-3:]
         k4 = to_front(k4_stack, k4_dim)
@@ -84,7 +96,6 @@ def hyperdiffuse_multi(F: torch.Tensor, k4_stack: torch.Tensor, dt: float,
     """Hyperdiffusion of stacked fields [M, H, W] in one pass."""
     if not use_kernel(F):
         return hyperdiffuse_multi_ref(F, k4_stack, dt, n_substeps, dlat, dlon, coslat, a)
-    refuse_grad("hyper4", F, k4_stack, coslat)
     return Hyper4.apply(F, k4_stack, dt, n_substeps, dlat, dlon, coslat, a)
 
 

@@ -8,6 +8,7 @@ import torch
 from .. import constants as const
 from ..config import PhysicsConfig
 from ..grid import Grid, divergence, vorticity
+from ..ops import safegrad
 from ..ops.reductions import area_mean, masked_median_of_positive
 from ..ops.smooth import gaussian_filter
 
@@ -44,7 +45,7 @@ def parameterize_cloud_cover(grid: Grid, T_s, u, v):
     gTx = (torch.roll(T_s, -1, 1) - torch.roll(T_s, 1, 1)) / (2.0 * dx)
     gTy = (torch.roll(T_s, -1, 0) - torch.roll(T_s, 1, 0)) / (2.0 * dy)
     adv = -(u * gTx + v * gTy)
-    fsrc = 0.3 * torch.clamp(torch.tanh(torch.abs(adv) / 2e-5), 0.0, 1.0)
+    fsrc = 0.3 * safegrad.tanh_abs_ramp(adv, 2e-5)
     return torch.clamp(gaussian_filter(evap_src + vsrc + fsrc, 1.0), 0.0, 1.0)
 
 

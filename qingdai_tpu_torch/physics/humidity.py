@@ -44,7 +44,11 @@ def condensation(q, T_a, dt, cfg: HumidityConfig):
     qsat_air = q_sat(T_a, p=cfg.p0)
     excess = torch.clamp(q - qsat_air, min=0.0)
     M_col = max(1e-6, float(cfg.rho_a * cfg.h_mbl))
-    P_cond = (excess / max(1e-6, cfg.tau_cond)) * M_col
+    # tau_cond may be an injected 0-d tensor (an adjoint parameter): clamp it
+    # on the device, without a host sync
+    tau = cfg.tau_cond
+    tau = torch.clamp(tau, min=1e-6) if isinstance(tau, torch.Tensor) else max(1e-6, tau)
+    P_cond = (excess / tau) * M_col
     q_next = torch.clamp(q - (P_cond / M_col) * dt, 0.0, 0.5)
     return P_cond, q_next
 

@@ -1,7 +1,9 @@
 """The four CUDA kernels against their plain PyTorch versions on the card,
 and their batched forms (an ensemble's members in one launch) against single
-calls. K1's fields, K2's cases, K4's operands and the batched forms' inputs
-are those ``chip_smoke.py`` holds them to.
+calls, and each kernel's backward (the plain version's VJP) through its
+``autograd.Function``. K1's fields, K2's cases, K4's operands, the batched
+forms' inputs and the gradients' cases are those ``chip_smoke.py`` holds
+them to.
 
 Marked ``gpu``: without a CUDA device every test skips. The file imports no
 JAX, so on a machine with a card and without JAX it runs alone with
@@ -14,7 +16,8 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import SHAREABLE, batched_equal, batched_pairs, k1_cases, k2_check, k4_operands
+from chip_smoke import (GRAD_TOL, GRADCHECK_NONDET, GRADCHECK_SHAPE, SHAREABLE, batched_equal,
+                        batched_pairs, grad_cases, k1_cases, k2_check, k4_operands)
 from qingdai_tpu_torch import constants as const
 from qingdai_tpu_torch import kernels, ocean
 from qingdai_tpu_torch.grid import make_grid
@@ -313,5 +316,53 @@ def test_batched_wrappers_refuse_bad_input(dev):
     with pytest.raises(ValueError):
         hyper4.hyperdiffuse_batched_cuda(x[:, None], x[:, None, ::2], 300.0, 1, 0.1, 0.1,
                                          x[0], 1.0, 3)
+    # a single call differentiates (its backward is the plain version's VJP);
+    # a batched one has no backward and refuses an input that requires grad
     with pytest.raises(RuntimeError, match="no backward"):
-        reductions.masked_median_of_positive(x[0].clone().requires_grad_())
+        torch.func.vmap(reductions.masked_median_of_positive)(x.clone().requires_grad_())
+
+
+KERNEL_NAMES = ["median_pos", "advect_bilinear", "hyper4", "ocean_substeps"]
+
+
+@pytest.mark.parametrize("name", KERNEL_NAMES)
+def test_backward_gradcheck(dev, name):
+    """Each Function's gradient against finite differences of the kernel's
+    forward (float64, 19×36, every input, relative perturbations; K4 two
+    substeps)."""
+    fn, _, ms, _ = grad_cases(dev, torch.float64, GRADCHECK_SHAPE)[name]
+    assert torch.autograd.gradcheck(fn, [m.requires_grad_(True) for m in ms],
+                                    nondet_tol=GRADCHECK_NONDET)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("name", KERNEL_NAMES)
+def test_backward_equals_plain_vjp(dev, dtype, name):
+    """At the main path's shapes the forward launches the kernel once and
+    the Function's VJP equals the plain version's, every input, within
+    ``GRAD_TOL`` of each gradient's largest |value|."""
+    fn, plain, xs, _ = grad_cases(dev, dtype)[name]
+    ins = [x.clone().requires_grad_(True) for x in xs]
+    before = kernels.launch_counts()[name]
+    outs = fn(*ins)
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    assert kernels.launch_counts()[name] == before + 1
+    r = np.random.default_rng(71)
+    cts = [_on(dev, r.standard_normal(tuple(o.shape)), dtype) for o in outs]
+    got = torch.autograd.grad(outs, ins, cts)
+    ref = plain(*ins)
+    ref = torch.autograd.grad(ref if isinstance(ref, tuple) else (ref,), ins, cts)
+    assert kernels.launch_counts()[name] == before + 1      # the backward launched none
+    for g, rg in zip(got, ref):
+        assert float((g - rg).abs().max()) <= GRAD_TOL[dtype] * float(rg.abs().max())
+
+
+@pytest.mark.parametrize("name", KERNEL_NAMES)
+def test_batched_form_refuses_grad(dev, name):
+    """The batched forms have no backward: a vmapped input that requires
+    grad raises."""
+    fn, _, xs, _ = grad_cases(dev, torch.float32, GRADCHECK_SHAPE)[name]
+    batched = [torch.stack([x, x]) for x in xs]
+    batched[0].requires_grad_(True)
+    with pytest.raises(RuntimeError, match="batched kernel has no backward"):
+        torch.func.vmap(fn, randomness="error")(*batched)
