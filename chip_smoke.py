@@ -76,6 +76,31 @@ Phases, each of which raises on failure (exit code non-zero):
      initial-T_s map, and dJ/d gh_factor in float32 against float64 on 12
      steps within 2e-2. 7.4: a 6-step float64 window against its central
      difference (1e-4) and against the same gradient on the CPU (1e-8).
+  8. data assimilation (``qingdai_tpu_torch.assim``, ``assimilate``). 8.1:
+     one LETKF analysis of 8 members of the flagship planet (1 K of T_s/SST
+     and 20 m of height noise, 48 steps on) with the CLI's six fields and
+     500 T_s observations of a truth (σ 0.5 K, 2000 km, inflation 1.04,
+     RTPS 0.6): the card's float64 analysis against the CPU's within 1e-10
+     of each field's largest |value|, the analysis mean unchanged by RTPS
+     (the deviations are zero-mean), float32 Newton–Schulz against float32
+     eigh within 1e-5; device ms, launches, wall ms and peak device memory
+     of one analysis with each solver; the host cost of building the step
+     with an injected parameter. 8.2: ``python -m
+     qingdai_tpu_torch.assimilate`` in this process at its defaults (chaos
+     truth) with no warm-up, 1 burn-in cycle and 3 cycles of 48 steps:
+     every analysis fits the observations (the ensemble-mean T_s at their
+     cells) closer than its background; every forecast chunk (burn-in,
+     forecast, free control) launches the batched forms 3, 3, 1 and 1 times
+     a step and no single form; no analysis launches a kernel, changes the
+     SST over land or leaves q or T_s out of range; the last analysis's
+     members finite and physical; ms a cycle by part (truth, forecast, free
+     control, analysis) and the forecast's member·sim-years/hour. The
+     area-weighted RMSE to the truth is printed, not held: from a cold
+     start the members' white T_s noise gives spurious covariances, and
+     the analysis lands above its background (PERF.md §4). 8.3: the same
+     with ``--est-param gh_factor`` for 2 cycles without burn-in: θ finite
+     with spread, each member's forecast with its own gh_factor in the same
+     batched launches.
 The line before the last is the kernels' JSON record, the four single forms
 (launches from phase 4's main path) and the four batched forms (launches
 from phase 4b's day at B = 8); the last line is
@@ -1596,6 +1621,299 @@ def adjoint_top_ops(fn, n=8):
     return sorted(rows, key=lambda t: -t[1])[:n]
 
 
+# ------------------------------------------------------------- phase 8
+
+ASSIM_MEMBERS = 8
+ASSIM_OBS = 500
+ASSIM_FIELDS = ("T_s", "sst", "h", "q", "u", "v")        # the CLI's default --fields
+ASSIM_SPIN = 48         # steps that give 8.1's members spread in every field
+# 8.2: the CLI's defaults (chaos truth, 500 T_s observations, σ 0.5 K,
+# 2000 km, inflation 1.04, RTPS 0.6) with the day of 240 steps, the 5
+# burn-in cycles and the 8 cycles cut to keep the phase near 90 s
+ASSIM_CYCLE = ["--members", str(ASSIM_MEMBERS), "--warmup-days", "0", "--burnin-cycles", "1",
+               "--cycles", "3", "--cycle-steps", "48", "--json"]
+ASSIM_AUGMENTED = ["--members", str(ASSIM_MEMBERS), "--warmup-days", "0", "--burnin-cycles",
+                   "0", "--cycles", "2", "--cycle-steps", "48", "--est-param", "gh_factor",
+                   "--json"]
+# 8.1: the card's float64 analysis against the CPU's, and float32
+# Newton–Schulz against float32 eigh, each field within this share of the
+# field's largest |value|
+ASSIM_F64_TOL = 1e-10
+ASSIM_F32_TOL = 1e-5
+
+
+def field_errors(a, b, X):
+    """max|a − b| of each field [k, F, C] over the field's max|X|."""
+    return [float((a[:, f] - b[:, f]).abs().max() / X[:, f].abs().max())
+            for f in range(X.shape[1])]
+
+
+def phase8_analysis(label):
+    """8.1: one LETKF analysis of a 181×360 ensemble of 8 members (module
+    docstring, phase 8). Returns (device ms, launches, wall ms and peak
+    memory of one analysis by solver, host ms of one step build)."""
+    from qingdai_tpu_torch import assim as A
+    from qingdai_tpu_torch import constants as const
+    from qingdai_tpu_torch import ensemble as E
+    from qingdai_tpu_torch import entry
+    from qingdai_tpu_torch import model as M
+    from qingdai_tpu_torch.adjoint import PARAM_ALIASES, inject_path
+
+    dev = torch.device("cuda")
+    mdl, base = entry.build_world(H, W, extra_env=MAIN)
+    land = mdl.static.land_mask
+    gens = [torch.Generator(device=dev).manual_seed(E.member_seed(1, i))
+            for i in range(ASSIM_MEMBERS + 1)]
+    members = [E.perturb_member(base, g, 1.0, land, 20.0) for g in gens]
+    ens, _ = E.make_ensemble_chunk_fn(mdl, ASSIM_SPIN)(E.stack_members(members[1:]))
+    truth, _ = M.make_chunk_fn(mdl, ASSIM_SPIN)(members[0])
+    g_obs = torch.Generator(device=dev).manual_seed(0)
+    cells = A.draw_obs_network(g_obs, mdl, ASSIM_OBS)
+    y = A.synthetic_obs(g_obs, truth, cells, "T_s", 0.5)
+    k, C = ASSIM_MEMBERS, H * W
+    X = A.gather_fields(ens, ASSIM_FIELDS).reshape(k, len(ASSIM_FIELDS), C)
+    fidx = torch.zeros(ASSIM_OBS, dtype=torch.long, device=dev)
+    lat, lon = mdl.grid.lat_mesh.reshape(-1), mdl.grid.lon_mesh.reshape(-1)
+    kw = dict(obs_err=0.5, loc_radius_km=2000.0, inflation=1.04,
+              planet_radius_m=const.PLANET_RADIUS)
+
+    def letkf(X, y, cells, fidx, lat, lon, **extra):
+        return A.letkf_analysis(X, y, cells, fidx, lat, lon, **kw, **{"rtps": 0.6, **extra})
+
+    # float64: the card against the CPU, and the deviations zero-mean (RTPS,
+    # which rescales the deviations alone, leaves the analysis mean as it is)
+    args64 = [t.double() for t in (X, y)] + [cells, fidx] + [t.double() for t in (lat, lon)]
+    t0 = time.perf_counter()
+    card64 = letkf(*args64)
+    cpu64 = letkf(*(t.cpu() for t in args64))
+    cpu_s = time.perf_counter() - t0
+    err64 = field_errors(card64.cpu(), cpu64, args64[0].cpu())
+    mean_shift = field_errors(card64.mean(0, keepdim=True),
+                              letkf(*args64, rtps=0.0).mean(0, keepdim=True), args64[0])
+    # float32: Newton–Schulz against eigh, each against float64
+    ns32, eigh32 = (letkf(X, y, cells, fidx, lat, lon, solver=s) for s in ("ns", "eigh"))
+    err32 = field_errors(ns32, eigh32, X)
+    to64 = [field_errors(a.double(), card64, args64[0]) for a in (ns32, eigh32)]
+    moved = float((card64 - args64[0]).abs().max())
+    print(f"phase 8: LETKF analysis {H}x{W}, {k} members, fields "
+          f"{','.join(ASSIM_FIELDS)}, {ASSIM_OBS} T_s observations (sigma 0.5 K, 2000 km, "
+          f"inflation 1.04, RTPS 0.6); float32 matmul precision "
+          f"{torch.get_float32_matmul_precision()!r}, TF32 "
+          f"{torch.backends.cuda.matmul.allow_tf32}; max increment {moved:.4e}")
+    print("phase 8: float64 card against CPU by field (of max|X|): "
+          + ", ".join(f"{f} {e:.3e}" for f, e in zip(ASSIM_FIELDS, err64))
+          + f" (bound {ASSIM_F64_TOL:g}; the CPU's analysis with the copies {cpu_s:.2f} s); "
+          "analysis mean with RTPS 0.6 against RTPS 0: "
+          + ", ".join(f"{e:.3e}" for e in mean_shift))
+    print("phase 8: float32 Newton-Schulz (25 iterations) against float32 eigh by field: "
+          + ", ".join(f"{f} {e:.3e}" for f, e in zip(ASSIM_FIELDS, err32))
+          + f" (bound {ASSIM_F32_TOL:g}); against float64: ns "
+          + ", ".join(f"{e:.2e}" for e in to64[0]) + "; eigh "
+          + ", ".join(f"{e:.2e}" for e in to64[1]))
+    if not moved > 0.0:
+        raise AssertionError("phase 8: the analysis did not move the ensemble")
+    if not max(err64) <= ASSIM_F64_TOL or not max(mean_shift) <= ASSIM_F64_TOL:
+        raise AssertionError(f"phase 8: float64 analysis card/CPU {err64}, mean shift "
+                             f"{mean_shift}")
+    if not max(err32) <= ASSIM_F32_TOL:
+        raise AssertionError(f"phase 8: float32 Newton-Schulz against eigh {err32}")
+    del card64, cpu64, args64, ns32, eigh32
+
+    # the per-member-parameter forecast builds the step inside each
+    # member-step (8.3): its host cost
+    g = torch.full((), mdl.cfg.energy.gh_factor, dtype=mdl.dtype, device=dev)
+    builds = []
+    for _ in range(20):
+        t0 = time.perf_counter()
+        M.make_step_fn(inject_path(mdl, PARAM_ALIASES["gh_factor"], g))
+        builds.append((time.perf_counter() - t0) * 1e3)
+
+    # one analysis through make_analysis_fn, each solver: device ms and
+    # launches, wall ms, peak device memory
+    rows = {}
+    for solver in ("ns", "eigh"):
+        cfg = A.AssimConfig(fields=ASSIM_FIELDS, obs_err=0.5, loc_radius_km=2000.0,
+                            inflation=1.04, rtps=0.6, solver=solver)
+        analysis = A.make_analysis_fn(mdl, cfg, ASSIM_OBS)
+        dev_ms, n_dev = device_profile(lambda: analysis(ens, y, cells), reps=5,
+                                       what=f"the analysis ({solver})")
+        walls = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            analysis(ens, y, cells)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        base_bytes = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        analysis(ens, y, cells)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base_bytes
+        rows[solver] = {"device_ms": dev_ms, "launches": n_dev,
+                        "wall_ms": statistics.median(walls), "peak_bytes": peak}
+        print(f"phase 8: one analysis ({solver}): {dev_ms:.4f} device ms in {n_dev:.1f} "
+              f"launches, wall {statistics.median(walls):.4f} ms (median of 5: "
+              + ", ".join(f"{w:.3f}" for w in walls) + f"), peak device memory above what "
+              f"was allocated before the call {peak / 2**30:.3f} GiB [{label}]", flush=True)
+    return rows, statistics.median(builds)
+
+
+class AssimWatch:
+    """While the OSSE CLI runs: each forecast chunk's kernel launches and
+    diags, and each analysis's launches, input and output states (the
+    analysis writes nothing in place, so the background stays valid beside
+    its output)."""
+
+    def __init__(self):
+        from qingdai_tpu_torch import assim as A
+        from qingdai_tpu_torch import ensemble as E
+        self.land = None
+        self.forecasts, self.analyses = [], []
+        self.saved = [(mod, name, getattr(mod, name)) for mod, name in (
+            (E, "make_ensemble_chunk_fn"), (A, "make_param_ensemble_chunk_fn"),
+            (A, "make_analysis_fn"), (A, "make_multivar_analysis_fn"),
+            (A, "make_augmented_analysis_fn"))]
+        for mod, name, make in self.saved:
+            setattr(mod, name, self._watching(name, make))
+
+    def _watching(self, name, make):
+        from qingdai_tpu_torch import kernels
+
+        def made(mdl, *args, **kw):
+            self.land = mdl.static.land_mask == 1
+            fn = make(mdl, *args, **kw)
+
+            def call(*a, **k):
+                before = kernels.launch_counts()
+                out = fn(*a, **k)
+                launches = {n: c - before[n] for n, c in kernels.launch_counts().items()}
+                if name.endswith("chunk_fn"):
+                    self.forecasts.append((launches, out[1]))
+                else:
+                    after = out[0] if isinstance(out, tuple) else out
+                    self.analyses.append((launches, a[0], after, a[-2], a[-1]))
+                return out
+            return call
+        return made
+
+    def restore(self):
+        for mod, name, make in self.saved:
+            setattr(mod, name, make)
+
+
+def obs_misfit(ens, y, cells):
+    """RMS of the ensemble-mean T_s against the observations at their cells."""
+    mean = ens.atmos.T_s.mean(0).reshape(-1)
+    return float(torch.sqrt(torch.mean((mean[cells] - y) ** 2)))
+
+
+def check_osse(watch, steps, tag):
+    """Phase 8.2's checks of one OSSE run (module docstring, phase 8):
+    every forecast chunk launches the batched forms 3, 3, 1 and 1 times a
+    step and no single form, its diags finite; every analysis fits the
+    observations closer than its background, launches no kernel, leaves the
+    SST over land as it was and q and T_s in range; the last analysis's
+    members finite and physical. Returns (the launches a forecast chunk
+    must make, the (background, analysis) misfits)."""
+    from qingdai_tpu_torch import ensemble as E
+
+    want = path_counts(steps, "_batched")
+    for launches, diags in watch.forecasts:
+        if launches != want:
+            raise AssertionError(f"{tag}: a forecast chunk launched {launches} != {want}")
+        bad = [k for k, v in diags.items() if not finite(v)]
+        if bad:
+            raise AssertionError(f"{tag}: forecast diags not finite: {bad}")
+    misfits = []
+    for launches, before, after, y, cells in watch.analyses:
+        misfits.append((obs_misfit(before, y, cells), obs_misfit(after, y, cells)))
+        if not misfits[-1][1] < misfits[-1][0]:
+            raise AssertionError(f"{tag}: the analysis fits the observations no closer than "
+                                 f"its background: {misfits[-1]}")
+        if any(launches.values()):
+            raise AssertionError(f"{tag}: the analysis launched kernels {launches}")
+        if not torch.equal(after.ocean.sst[:, watch.land], before.ocean.sst[:, watch.land]):
+            raise AssertionError(f"{tag}: the analysis changed the SST over land")
+        if not (float(after.atmos.q.min()) >= 0.0 and 150.0 <= float(after.atmos.T_s.min())
+                and float(after.atmos.T_s.max()) <= 400.0):
+            raise AssertionError(f"{tag}: the analysis left q or T_s outside their ranges")
+    final = watch.analyses[-1][2]
+    for m in range(E.n_members(final)):
+        check_run(E.member_state(final, m), {k: v[m] for k, v in watch.forecasts[-1][1].items()},
+                  steps, eco=True)
+    return want, misfits
+
+
+def phase8_osse(label, build_ms):
+    """8.2 and 8.3: the OSSE CLI in this process (module docstring, phase
+    8), functorch's per-member fallback an error."""
+    import os
+    import warnings
+
+    from qingdai_tpu_torch import assimilate
+
+    from qingdai_tpu_torch import kernels
+
+    rows = {}
+    # the CLI reads the QD_* environment: run it on the defaults
+    old_env = {k: v for k, v in os.environ.items() if k.startswith("QD_")}
+    for tag, argv in (("8.2 OSSE", ASSIM_CYCLE), ("8.3 augmented", ASSIM_AUGMENTED)):
+        steps = int(argv[argv.index("--cycle-steps") + 1])
+        watch = AssimWatch()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        try:
+            for k in old_env:
+                del os.environ[k]
+            with warnings.catch_warnings():
+                warnings.filterwarnings("error", message=FALLBACK)
+                summary = assimilate.main(argv)
+        finally:
+            os.environ.update(old_env)
+            watch.restore()
+        wall = time.perf_counter() - t0
+        want, misfits = check_osse(watch, steps, tag)
+        # the truth's steps launch the single forms, every forecast chunk's
+        # the batched ones
+        truth_steps = (summary["burnin_cycles"] + summary["cycles"]) * steps
+        total = {**path_counts(truth_steps), **{
+            k: v for k, v in path_counts(len(watch.forecasts) * steps, "_batched").items()
+            if k.endswith("_batched")}}
+        if kernels.launch_counts() != total:
+            raise AssertionError(f"{tag}: the run launched {kernels.launch_counts()} != {total}")
+        cms = summary["cycle_ms"]
+        rows[tag] = {"cycle_ms": cms, "wall_s": wall, "series": summary["series"],
+                     "member_sim_years_per_hour": summary["forecast_member_sim_years_per_hour"]}
+        print(f"phase 8: {tag} {summary['grid']} f32, {summary['members']} members, "
+              f"{summary['cycles']} cycles of {steps} steps after {summary['burnin_cycles']} "
+              f"burn-in; observation misfit of the mean T_s, background/analysis K by cycle "
+              + "; ".join(f"{b:.4f}/{a:.4f}" for b, a in misfits)
+              + "; area-weighted RMSE to the truth (not held: from a cold start the members' "
+              "white T_s noise leaves the analysis above its background, PERF.md §4), "
+              "rmse_b/rmse_a/free K by cycle "
+              + "; ".join(f"{r['rmse_b_K']}/{r['rmse_a_K']}/{r.get('rmse_free_K')}"
+                          for r in summary["series"])
+              + f"; {len(watch.forecasts)} forecast chunks each launching {want}, "
+              f"{len(watch.analyses)} analyses launching none, the truth's {truth_steps} "
+              f"steps the single forms: the run launched {total}; run {wall:.1f} s [{label}]")
+        print(f"phase 8: {tag} ms a cycle: truth {cms['truth']:.1f}, forecast "
+              f"{cms['forecast']:.1f} ({cms['forecast'] / steps:.4f} ms/step), free control "
+              f"{cms['free']:.1f}, analysis {cms['analysis']:.2f}; forecast "
+              f"{summary['forecast_member_sim_years_per_hour']:.3f} member-sim-years/hour "
+              f"[{label}]", flush=True)
+        if "--est-param" in argv:
+            th = [(r["param_mean"], r["param_std"]) for r in summary["series"]]
+            if not all(np.isfinite(m) and np.isfinite(s) and s > 0.0 for m, s in th):
+                raise AssertionError(f"{tag}: theta mean and spread {th}")
+            print(f"phase 8: {tag} gh_factor mean/std by cycle "
+                  + "; ".join(f"{m:.6f}/{s:.6f}" for m, s in th)
+                  + f" (truth {summary['param_truth']}, prior {summary['param_prior_mean']} ± "
+                  f"{summary['param_prior_std']}); the step built inside each member-step "
+                  f"{build_ms:.4f} host ms; forecast against 8.2's plain ensemble "
+                  f"{cms['forecast'] / rows['8.2 OSSE']['cycle_ms']['forecast']:.3f}×")
+    return rows
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1603,6 +1921,7 @@ def main():
     import qingdai_tpu_torch  # noqa: F401  (fails outside a checkout of the repo)
     from qingdai_tpu_torch.kernels import build
 
+    started = time.perf_counter()
     dev = torch.device("cuda")
     label = card_label()
     print(f"card: {label}")
@@ -1635,11 +1954,14 @@ def main():
     phase6_world(label)
     phase7_backwards(dev, label, rec)
     phase7_adjoint(dev, label, rec)
+    _, build_ms = phase8_analysis(label)
+    phase8_osse(label, build_ms)
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels_line = [{"name": name + form, "route": "cuda", "source": src, "replaces": rep,
                      "launches": counts[name + form], **{k: rec[name + form][k] for k in keys}}
                     for form in ("", "_batched") for name, src, rep, _ in KERNELS]
+    print(f"chip_smoke: phases 1-8 in {time.perf_counter() - started:.1f} s")
     print(f"card: {label}")
     print(json.dumps({"kernels": kernels_line}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -183,13 +183,54 @@ def member_state(ens: WorldState, i: int) -> WorldState:
     return _join(ens, tuple(v[i] for v in per), shared)
 
 
-def _draws(model: M.Model, ens: WorldState, generators) -> eco_mod.MutationDraws:
+def mutation_draws(model: M.Model, ens: WorldState, generators) -> eco_mod.MutationDraws:
     """Each member's mutation draws from its own generator, stacked on the
     member axis."""
     if generators is None or len(generators) != n_members(ens):
         raise ValueError(f"mutation is on: give the ensemble's {n_members(ens)} generators")
     per = [eco_mod.mutation_draws(model.eco_static, ens.eco, g) for g in generators]
     return eco_mod.MutationDraws(*(torch.stack(x) for x in zip(*per)))
+
+
+def _vmap_step(fn, ens: WorldState, draws, batched):
+    """(ens, diags) of one step of every member: ``fn(state, draws,
+    *batched)`` (a single-planet step) under one ``torch.func.vmap`` over
+    the members. ``draws`` (``mutation_draws``, or None) and each tensor of
+    ``batched`` carry the member axis first."""
+    per, shared = _split(ens)
+    # the shared tensors leave the vmap unbatched (out_dims None, which
+    # vmap checks); the host numbers, which it cannot return, beside it
+    tensor_keys = [k for k, v in shared.items() if isinstance(v, torch.Tensor)]
+    host_out = {}
+
+    def body(per_member, draws, *extra):
+        new, diags = fn(_join(ens, per_member, shared), draws, *extra)
+        new_per, new_shared = _split(new)
+        host_out.update((k, v) for k, v in new_shared.items() if k not in tensor_keys)
+        return new_per, tuple(new_shared[k] for k in tensor_keys), diags
+
+    run = torch.func.vmap(body, in_dims=(0, None if draws is None else 0) + (0,) * len(batched),
+                          out_dims=(0, None, 0), randomness="error")
+    new_per, shared_out, diags = run(per, draws, *batched)
+    return _join(ens, new_per, {**host_out, **dict(zip(tensor_keys, shared_out))}), diags
+
+
+def run_steps(model: M.Model, ens: WorldState, n: int, diag_every: int, step, step_nd,
+              generators=None, batched=()):
+    """(ens, diags): ``n`` steps of every member, each one ``torch.func.vmap``
+    of ``step(state, draws, *batched)`` (``step_nd`` on the steps that emit
+    no diags: all but every ``diag_every``-th), in a Python loop. With
+    mutation on, each member's draws come from its generator."""
+    rows = []
+    for i in range(n):
+        draws = (mutation_draws(model, ens, generators) if M.mutation_due(model, ens.clock)
+                 else None)
+        if (i + 1) % diag_every == 0:
+            ens, d = _vmap_step(step, ens, draws, batched)
+            rows.append(d)
+        else:
+            ens, _ = _vmap_step(step_nd, ens, draws, batched)
+    return ens, {k: torch.stack([r[k] for r in rows], dim=1) for k in rows[0]}
 
 
 def make_ensemble_chunk_fn(model: M.Model, chunk_steps: Optional[int] = None,
@@ -207,34 +248,8 @@ def make_ensemble_chunk_fn(model: M.Model, chunk_steps: Optional[int] = None,
     step = M.make_step_fn(model)
     step_nd = M.make_step_fn(model, with_diags=False) if de > 1 else step
 
-    def vstep(fn, ens, draws):
-        per, shared = _split(ens)
-        # the shared tensors leave the vmap unbatched (out_dims None, which
-        # vmap checks); the host numbers, which it cannot return, beside it
-        tensor_keys = [k for k, v in shared.items() if isinstance(v, torch.Tensor)]
-        host_out = {}
-
-        def body(per_member, draws):
-            new, diags = fn(_join(ens, per_member, shared), draws)
-            new_per, new_shared = _split(new)
-            host_out.update((k, v) for k, v in new_shared.items() if k not in tensor_keys)
-            return new_per, tuple(new_shared[k] for k in tensor_keys), diags
-
-        run = torch.func.vmap(body, in_dims=(0, None if draws is None else 0),
-                              out_dims=(0, None, 0), randomness="error")
-        new_per, shared_out, diags = run(per, draws)
-        return _join(ens, new_per, {**host_out, **dict(zip(tensor_keys, shared_out))}), diags
-
     def chunk(ens: WorldState, generators=None):
-        rows = []
-        for i in range(n):
-            draws = _draws(model, ens, generators) if M.mutation_due(model, ens.clock) else None
-            if (i + 1) % de == 0:
-                ens, d = vstep(step, ens, draws)
-                rows.append(d)
-            else:
-                ens, _ = vstep(step_nd, ens, draws)
-        return ens, {k: torch.stack([r[k] for r in rows], dim=1) for k in rows[0]}
+        return run_steps(model, ens, n, de, step, step_nd, generators)
 
     return chunk
 

@@ -15,8 +15,8 @@ from qingdai_tpu import config as JC
 from qingdai_tpu import flags
 from qingdai_tpu import topography as jtopo
 from qingdai_tpu_torch import config as TC
-from qingdai_tpu_torch import (calibrate_joint, convert, entry, grid, model, run_simulation,
-                               sensitivity, world)
+from qingdai_tpu_torch import (assimilate, calibrate_joint, convert, entry, grid, model,
+                               run_simulation, sensitivity, world)
 from qingdai_tpu_torch import topography as ttopo
 
 REPO = Path(__file__).resolve().parents[1]
@@ -46,7 +46,8 @@ def test_port_sources_import_no_jax():
             "qingdai_tpu_torch/run_simulation.py", "qingdai_tpu_torch/ensemble.py",
             "qingdai_tpu_torch/run_ensemble.py", "qingdai_tpu_torch/ops/members.py",
             "qingdai_tpu_torch/adjoint.py", "qingdai_tpu_torch/sensitivity.py",
-            "qingdai_tpu_torch/calibrate_joint.py"} <= names
+            "qingdai_tpu_torch/calibrate_joint.py", "qingdai_tpu_torch/assim.py",
+            "qingdai_tpu_torch/assimilate.py"} <= names
     bad = [(p.relative_to(REPO).as_posix(), m) for p in _port_sources()
            for m in _absolute_imports(p) if m.split(".")[0] in FORBIDDEN]
     assert bad == []
@@ -144,4 +145,6 @@ def test_driver_and_cli_default_to_the_card(monkeypatch, tmp_path):
         sensitivity.main(["--json"])
     with pytest.raises(RuntimeError, match="device='cpu'"):
         calibrate_joint.main(["--json"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        assimilate.main(["--json"])
     assert not (tmp_path / "data").exists() and not (tmp_path / "output").exists()
