@@ -101,6 +101,33 @@ Phases, each of which raises on failure (exit code non-zero):
      with ``--est-param gh_factor`` for 2 cycles without burn-in: θ finite
      with spread, each member's forecast with its own gh_factor in the same
      batched launches.
+  9. the spin-up SOP and the restart regrid (``qingdai_tpu_torch.spinup``,
+     ``regrid_restart``), each CLI's ``main(argv)`` in this process, in a
+     temporary directory with the SOP's environment (the energy path,
+     banded initial T_s, the Q_net-coupled ocean, the energy audit) and
+     mutation on, chunks of one day. 9.1: the two-phase SOP at 181×360, 2
+     days at MLD 5 from a cold start (the seeded orography in memory where
+     no NetCDF library is installed), then 4 days at MLD 50 from the
+     sidecar: K1–K4 launched 3, 3, 1 and 1 times a step, every chunk's means
+     finite, the record with the JAX tool's keys and the acceptance that
+     ``build_criteria`` gives on its series. 9.2: from a copy of ``data/``
+     as phase 1 left it, the same phase 2 as two 2-day segments
+     (``--skip-phase1``, then ``--prepend-series``) must equal 9.1's
+     uninterrupted phase 2 bit for bit: every leaf of the final sidecar, the
+     generator state and the merged series. 9.3: the staged chain, 9.1's
+     phase-2 restart regridded to 361×720 and a 2-day ``--restart-in``
+     segment there, that segment's restart regridded to 721×1440 and
+     another: at each grid K1–K4 at 3, 3, 1 and 1 a step, no flux-cache
+     bootstrap and no transient chunk, the state finite and physical, and
+     each kernel called on its last step's own inputs against its plain
+     version (K1 bit-equal, K2–K4 within phase 3's tolerances) with its
+     device ms a call and its bound; ms/step, sim-years/hour, peak device
+     memory and the host build times. 9.4: ``world.run()`` for a day with
+     ``QD_PLOT_EVERY_DAYS=1`` and ``QD_ECO_DIVERSITY_ENABLE=1`` writes the
+     panels and the diversity snapshot (without matplotlib: the snapshot
+     and one printed line), and whether matplotlib is installed.
+     ``python3 chip_smoke.py --phase 9`` builds the kernels and runs phase 9
+     alone, without the record lines.
 The line before the last is the kernels' JSON record, the four single forms
 (launches from phase 4's main path) and the four batched forms (launches
 from phase 4b's day at B = 8); the last line is
@@ -109,6 +136,7 @@ from phase 4b's day at B = 8); the last line is
 
 import functools
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -296,8 +324,9 @@ def k1_cases(r, dtype, shape=(H, W)):
     }
 
 
-def k2_check(dev, dtype, M, case, r, tol):
-    """One K2 case on the card: the kernel's departure points bit-equal to
+def k2_check(dev, dtype, M, case, r, tol, shape=(H, W)):
+    """One K2 case on the card, on a grid of ``shape`` (181×360 unless
+    given): the kernel's departure points bit-equal to
     ``departure_indices``, the stack within tol · max|F| of the plain version,
     and ``advect_semilag_multi`` launching the kernel. Cases: "winds", random
     winds capped at 200 m/s; "poles", the pole rows at 150–200 m/s, whose
@@ -308,6 +337,7 @@ def k2_check(dev, dtype, M, case, r, tol):
     from qingdai_tpu_torch.kernels.advect_bilinear import advect_bilinear_cuda
     from qingdai_tpu_torch.ops import advect
 
+    H, W = shape
     g = make_grid(H, W, device=dev, dtype=dtype)
     F = on(dev, 280.0 + 20.0 * r.standard_normal((M, H, W)), dtype)
     u = np.clip(120.0 * r.standard_normal((H, W)), -200, 200)
@@ -1914,7 +1944,466 @@ def phase8_osse(label, build_ms):
     return rows
 
 
-def main():
+# ------------------------------------------------------------- phase 9
+
+
+# the spin-up SOP's environment (scripts' docs/11.4 bundle: the energy path,
+# banded initial T_s, the Q_net-coupled ocean, the energy audit), mutation on
+SOP_ENV = {"QD_ENERGY_W": "1", "QD_INIT_BANDED": "1", "QD_OCEAN_USE_QNET": "1",
+           "QD_ENERGY_AUDIT": "1", "QD_ECO_MUT_RATE": "1"}
+SOP_DAYS = (2, 4)                   # 9.1: phase 1 at MLD 5, phase 2 at MLD 50
+SEGMENT_DAYS = 2                    # 9.2's two segments; 9.3's segment at each grid
+CHAIN_GRIDS = ((361, 720), (721, 1440))
+# the stage's own K2-K4 calls against their plain versions: phase 3's
+# tolerances, each output (K4: each plane) within this share of its max|value|
+STAGE_TOL = {"advect_bilinear": 1e-6, "hyper4": 1e-5, "ocean_substeps": 1e-4}
+
+
+class _Keeping:
+    """A kernel wrapper that keeps its calls' arguments in ``sink``; every
+    other attribute (``launches``, the wrapper's own flags) is the wrapped
+    function's."""
+
+    def __init__(self, fn, sink):
+        object.__setattr__(self, "fn", fn)
+        object.__setattr__(self, "sink", sink)
+
+    def __call__(self, *args, **kwargs):
+        self.sink.append((args, kwargs))
+        return self.fn(*args, **kwargs)
+
+    def __getattr__(self, name):
+        return getattr(self.fn, name)
+
+    def __setattr__(self, name, value):
+        setattr(self.fn, name, value)
+
+
+class KernelCalls:
+    """Keeps each kernel wrapper's calls of the last step (the arguments the
+    path gave it) while a path runs; the wrappers still launch and count.
+    ``restore`` puts the wrappers back."""
+
+    def __init__(self):
+        import collections
+
+        from qingdai_tpu_torch.kernels import (advect_bilinear, hyper4, median_pos,
+                                               ocean_substeps)
+        self.targets = {"median_pos": (median_pos, "median_pos_cuda"),
+                        "advect_bilinear": (advect_bilinear, "advect_bilinear_cuda"),
+                        "hyper4": (hyper4, "hyperdiffuse_cuda"),
+                        "ocean_substeps": (ocean_substeps, "ocean_substeps_cuda")}
+        self.orig = {k: getattr(mod, fn) for k, (mod, fn) in self.targets.items()}
+        self.calls = {k: collections.deque(maxlen=per_step) for k, *_, per_step in KERNELS}
+        for k, (mod, fn) in self.targets.items():
+            setattr(mod, fn, _Keeping(self.orig[k], self.calls[k]))
+
+    def restore(self):
+        for k, (mod, fn) in self.targets.items():
+            setattr(mod, fn, self.orig[k])
+
+
+def _tensors(x):
+    if isinstance(x, torch.Tensor):
+        return [x]
+    if isinstance(x, (tuple, list)):
+        return [t for y in x for t in _tensors(y)]
+    return []
+
+
+def stage_kernels(calls, label, tag):
+    """Each kernel once on the stage's own inputs (its last step's calls)
+    against its plain version: K1 bit-equal, K2-K4 within ``STAGE_TOL``;
+    then its device ms a call and its bound (each input read once, each
+    output written once, at the published HBM rate). Returns {kernel: (ms,
+    bound_ms)} of its call with the largest first input."""
+    from qingdai_tpu_torch import ocean
+    from qingdai_tpu_torch.ops import advect, reductions, stencil
+
+    def plain(name, args, kw):
+        if name == "median_pos":
+            return reductions.masked_median_of_positive_ref(*args, **kw)
+        if name == "advect_bilinear":
+            F, u, v, dt, a, dlat, dlon, cos = args
+            return advect.bilinear_wrap_gather_multi(F, *advect.departure_indices(
+                tuple(F.shape[1:]), u, v, dt, a, dlat, dlon, cos, F.dtype))
+        if name == "hyper4":
+            return stencil.hyperdiffuse_multi_ref(*args, **kw)
+        return ocean.ocean_substeps_plain(*args, **kw)
+
+    out, lines = {}, []
+    for name, *_ in KERNELS:
+        kernel = calls.orig[name]
+        if not calls.calls[name]:
+            raise AssertionError(f"{tag}: {name} was not called")
+        # timed: the call with the largest first input (K2's [T_s, q] stack)
+        timed = max(range(len(calls.calls[name])),
+                    key=lambda i: calls.calls[name][i][0][0].numel())
+        for i, (args, kw) in enumerate(calls.calls[name]):
+            got, ref = _tensors(kernel(*args, **kw)), _tensors(plain(name, args, kw))
+            if name == "median_pos":
+                if not torch.equal(got[0], ref[0]):
+                    raise AssertionError(f"{tag}: K1 call {i} {float(got[0])!r} != "
+                                         f"{float(ref[0])!r}")
+                worst = 0.0
+            else:
+                planes = [(g, r) for g_, r_ in zip(got, ref)
+                          for g, r in (zip(g_, r_) if name == "ocean_substeps" else [(g_, r_)])]
+                errs = [float((g - r).abs().max()) / max(float(r.abs().max()), 1e-30)
+                        for g, r in planes]
+                worst = max(errs)
+                if not worst <= STAGE_TOL[name]:
+                    raise AssertionError(f"{tag}: {name} call {i}: max|err|/max|value| "
+                                         f"{worst:.3e} > {STAGE_TOL[name]}")
+            if i == timed:
+                nbytes = (sum(t.numel() * t.element_size() for t in _tensors(list(args))
+                              + _tensors(list(kw.values())))
+                          + sum(t.numel() * t.element_size() for t in got))
+                ms = device_ms(lambda: kernel(*args, **kw), what=f"{tag} {name}")
+                out[name] = (ms, nbytes / PEAK_BYTES * 1e3)
+                shape = "x".join(str(s) for s in _tensors(list(args))[0].shape)
+                lines.append(f"{name} [{shape}] {ms:.5f} ms (bound {out[name][1]:.5f}, "
+                             f"{nbytes} B; {ms / out[name][1]:.1f}x), max|err|/max|value| "
+                             f"{worst:.2e}")
+    print(f"{tag}: the stage's kernels on its last step's inputs, against their plain "
+          f"versions (K1 bit-equal, K2-K4 within {STAGE_TOL}), device ms a call: "
+          + "; ".join(lines) + f" [{label}]")
+    return out
+
+
+class StageClock:
+    """Wall time of the world's builds and of each chunk (the card
+    synchronised before and after) while a path runs; ``restore`` puts the
+    methods back. Also counts the flux-cache bootstraps."""
+
+    def __init__(self):
+        from qingdai_tpu_torch import hydro_network, spinup
+        from qingdai_tpu_torch import world as world_mod
+        self.builds, self.chunks, self.network, self.topo, self.bootstraps = [], [], [], [], 0
+        cls = world_mod.QingdaiWorld
+        bootstrap_caches = cls._bootstrap_flux_caches
+        self.saved = [(cls, "__init__", cls.__init__), (cls, "step_chunk", cls.step_chunk),
+                      (cls, "_bootstrap_flux_caches", bootstrap_caches),
+                      (hydro_network, "build_network", hydro_network.build_network),
+                      (spinup, "_ensure_topography", spinup._ensure_topography)]
+        clock = self
+
+        def timed(into, fn, sync=False):
+            def wrapped(*args, **kwargs):
+                if sync:
+                    torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = fn(*args, **kwargs)
+                if sync:
+                    torch.cuda.synchronize()
+                into.append(time.perf_counter() - t0)
+                return out
+            return wrapped
+
+        def bootstrap(world):
+            clock.bootstraps += 1
+            return bootstrap_caches(world)
+
+        cls.__init__ = timed(self.builds, cls.__init__)
+        cls.step_chunk = timed(self.chunks, cls.step_chunk, sync=True)
+        cls._bootstrap_flux_caches = bootstrap
+        hydro_network.build_network = timed(self.network, hydro_network.build_network)
+        spinup._ensure_topography = timed(self.topo, spinup._ensure_topography)
+
+    def restore(self):
+        for obj, name, fn in self.saved:
+            setattr(obj, name, fn)
+
+
+def load_sidecar(path):
+    return torch.load(path, map_location="cpu", weights_only=True)
+
+
+def sidecar_state_check(payload, tag):
+    """The saved state's floating leaves finite (the albedo caches' NaN
+    sentinels aside) and physical: T_s in [150, 450] K in every cell (150 K
+    is the energy path's floor), |u| and |v| <= 200 m/s."""
+    st = payload["state"]
+    bad = [k for k, v in st.items() if isinstance(v, torch.Tensor) and v.is_floating_point()
+           and "alpha" not in k and not bool(torch.isfinite(v).all())]
+    ts, u, v = st["atmos.T_s"], st["atmos.u"].abs().max(), st["atmos.v"].abs().max()
+    if bad or not (150.0 <= float(ts.min()) and float(ts.max()) <= 450.0
+                   and float(u) <= 200.0 and float(v) <= 200.0):
+        raise AssertionError(f"{tag}: non-finite leaves {bad[:8]} or unphysical state: T_s in "
+                             f"[{float(ts.min())}, {float(ts.max())}] K, max|u| {float(u)}, "
+                             f"max|v| {float(v)}")
+    return float(ts.min()), float(ts.max()), float(max(u, v))
+
+
+def series_check(s, tag):
+    bad = [k for k in KEYS9 if not np.isfinite(s[k]).all()]
+    if bad:
+        raise AssertionError(f"{tag}: non-finite chunk means in {bad}")
+
+
+# the chunk-mean keys every SOP run must give finite (scripts' KEYS, the
+# routing and audit scalars of the flagship planet with the energy audit on)
+KEYS9 = ("TOA_net", "SFC_net", "ATM_net", "Ts_mean", "E_mean", "P_mean", "R_mean", "LH_mean",
+         "LH_release_mean", "total_reservoir_mean", "CWV_mean", "ICE_mean", "W_land_mean",
+         "S_snow_mean", "routing_mass_error_kg", "routing_routed_mass_kg", "aud_part",
+         "aud_qdamp")
+RECORD_KEYS = ("protocol", "grid", "phase1", "phase2", "acceptance", "accepted", "wall_hours")
+
+
+def sop_run(argv, watch_phases=None):
+    """``spinup.main(argv)`` in this process, with the launch counts set to 0
+    just before and read just after; each phase's series (and, for the
+    phases named in ``watch_phases``, a copy of ``data/`` as the phase left
+    it) kept. Returns (record, {phase: series}, launch counts, StageClock)."""
+    import shutil
+
+    from qingdai_tpu_torch import kernels, spinup
+
+    series, orig = {}, spinup.run_phase
+
+    def keeping(name, *args, **kwargs):
+        out = orig(name, *args, **kwargs)
+        series[name] = out
+        if watch_phases and name in watch_phases:
+            shutil.copytree("data", watch_phases[name])
+        return out
+
+    spinup.run_phase = keeping
+    clock = StageClock()
+    kernels.reset_launch_counts()
+    try:
+        spinup.main(argv)
+        counts = kernels.launch_counts()
+    finally:
+        spinup.run_phase = orig
+        clock.restore()
+    name = argv[argv.index("--out") + 1] if "--out" in argv else spinup.DEFAULT_OUT
+    with open(os.path.join("output", name)) as f:
+        record = json.load(f)
+    return record, series, counts, clock
+
+
+def restart_of(directory):
+    """The phase-2 restart a spin-up left in ``directory``/data: the NetCDF
+    file, or the torch.save container where no NetCDF library is installed."""
+    for ext in (".nc", ".pt"):
+        path = os.path.join(directory, "data", "restart_phase2" + ext)
+        if os.path.exists(path):
+            return path
+    raise AssertionError(f"no phase-2 restart in {directory}/data")
+
+
+def chunk_rate(clock, steps_per_chunk, dt):
+    """(ms/step, sim-years/hour) of the run's chunks after its first (the
+    card synchronised around each chunk)."""
+    from qingdai_tpu_torch.physics.orbital import T_PLANET
+
+    steady = clock.chunks[1:] or clock.chunks
+    ms = 1e3 * sum(steady) / (len(steady) * steps_per_chunk)
+    return ms, 3600.0 / (ms / 1e3) * dt / T_PLANET
+
+
+def phase9_spinup(label):
+    """The spin-up SOP, the multi-day resume and the staged chain, and the
+    world driver's plots (module docstring, phase 9). Returns its rows."""
+    import os
+    import shutil
+    import tempfile
+
+    from qingdai_tpu_torch import constants as const
+    from qingdai_tpu_torch import kernels, regrid_restart, spinup
+    from qingdai_tpu_torch import world as world_mod
+    from qingdai_tpu_torch.config import SimConfig
+    from qingdai_tpu_torch.physics.orbital import T_PLANET
+
+    started = time.perf_counter()
+    old_env = {k: v for k, v in os.environ.items() if k.startswith("QD_")}
+    old_cwd = os.getcwd()
+    rows = {}
+    with tempfile.TemporaryDirectory(prefix="qd_phase9_") as tmp:
+        for k in old_env:
+            del os.environ[k]
+        os.environ.update(SOP_ENV)
+        try:
+            dt = SimConfig.from_env().run.dt_seconds
+            spd = int(round(const.DAY_SECONDS / dt))
+
+            def years(days):
+                return repr(days * const.DAY_SECONDS / T_PLANET)
+
+            def grid(h, w):
+                return ["--chunk-days", "1", "--nlat", str(h), "--nlon", str(w)]
+
+            # 9.1: the two-phase SOP at 181x360
+            sop = os.path.join(tmp, "sop")
+            os.makedirs(sop)
+            os.chdir(sop)
+            p1, p2 = SOP_DAYS
+            after1 = os.path.join(tmp, "data_after_phase1")
+            record, series, counts, clock = sop_run(
+                ["--phase1-years", years(p1), "--phase2-years", years(p2)] + grid(H, W),
+                watch_phases={"phase1": after1})
+            if counts != path_counts((p1 + p2) * spd):
+                raise AssertionError(f"9.1: launch counts {counts} != "
+                                     f"{path_counts((p1 + p2) * spd)}")
+            for name, days in (("phase1", p1), ("phase2", p2)):
+                series_check(series[name], f"9.1 {name}")
+                if len(series[name]["t_years"]) != days:
+                    raise AssertionError(f"9.1 {name}: {len(series[name]['t_years'])} chunks")
+            missing = [k for k in RECORD_KEYS if k not in record]
+            s2 = dict(np.load(os.path.join(
+                "output", os.path.splitext(spinup.DEFAULT_OUT)[0] + "_series.npz")))
+            m2 = spinup.acceptance_metrics(s2, record["phase2"]["metrics"]["eval_years"])
+            crit = spinup.build_criteria(m2)
+            if (missing or set(m2) != set(record["phase2"]["metrics"])
+                    or crit != record["acceptance"]
+                    or record["device"] != torch.cuda.get_device_name(0)):
+                raise AssertionError(f"9.1: record keys missing {missing}, metrics keys "
+                                     f"{sorted(set(m2) ^ set(record['phase2']['metrics']))}, "
+                                     f"acceptance {record['acceptance']} against {crit}, "
+                                     f"device {record.get('device')}")
+            ms, syh = chunk_rate(clock, spd, dt)
+            m = record["phase2"]["metrics"]
+            print(f"9.1 SOP {H}x{W} f32: phase 1 {p1} d at MLD 5 from a cold start, phase 2 "
+                  f"{p2} d at MLD 50 from the sidecar; launches {counts} "
+                  f"(3, 3, 1, 1 a step); every chunk's means finite; phase 2: TOA_net "
+                  f"{m['TOA_net_mean_Wm2']:.4f} W/m2, Ts {m['Ts_mean_K']:.4f} K, water "
+                  f"residual net of q-damping {m['water_residual_minus_qdamping_rel']:.4e}, LH "
+                  f"net of q-damping {m['LH_minus_qdamping_rel']:.4e}, TOA attribution "
+                  f"residual {m['TOA_attribution_residual_Wm2']:.4f} W/m2, transient chunks "
+                  f"{m['transient_chunks_total']}; acceptance (as build_criteria gives on the "
+                  f"series) {record['acceptance']}; {ms:.4f} ms/step, {syh:.3f} "
+                  f"sim-years/hour [{label}]", flush=True)
+            rows["9.1"] = {"ms_step": ms, "syh": syh, "metrics": m}
+
+            # 9.2: the same phase 2 as two segments from phase 1's data/
+            seg = os.path.join(tmp, "resume")
+            os.makedirs(seg)
+            shutil.copytree(after1, os.path.join(seg, "data"))
+            os.chdir(seg)
+            if 2 * SEGMENT_DAYS != p2:
+                raise AssertionError("9.2's two segments must make 9.1's phase 2")
+            seg_args = ["--skip-phase1", "--phase2-years", years(SEGMENT_DAYS)] + grid(H, W)
+            _, _, c_a, _ = sop_run(seg_args + ["--out", "seg_a.json"])
+            _, _, c_b, _ = sop_run(seg_args + ["--out", "seg_b.json", "--prepend-series",
+                                               os.path.join("output", "seg_a_series.npz")])
+            want = path_counts(SEGMENT_DAYS * spd)
+            if c_a != want or c_b != want:
+                raise AssertionError(f"9.2: launch counts {c_a}, {c_b} != {want}")
+            one = load_sidecar(os.path.join(sop, "data", "world_ckpt.pt"))
+            two = load_sidecar(os.path.join(seg, "data", "world_ckpt.pt"))
+            bad = [k for k in one["state"] if not same_bits(one["state"][k],
+                                                            two["state"].get(k))]
+            if set(one["state"]) != set(two["state"]) or bad:
+                raise AssertionError(f"9.2: the resumed phase 2 differs from the uninterrupted "
+                                     f"one in {bad[:8]}")
+            if not torch.equal(one["generator"], two["generator"]):
+                raise AssertionError("9.2: the generators differ")
+            merged = dict(np.load(os.path.join("output", "seg_b_series.npz")))
+            diff = [k for k in s2 if not same_bits(s2[k], merged.get(k))]
+            if set(s2) != set(merged) or diff:
+                raise AssertionError(f"9.2: the merged series differs from the uninterrupted "
+                                     f"one in {diff}")
+            print(f"9.2 resume {H}x{W} f32: phase 2 as {SEGMENT_DAYS} + {SEGMENT_DAYS} days "
+                  f"(--skip-phase1, then --skip-phase1 --prepend-series; {SEGMENT_DAYS} daily "
+                  f"mutation draws and {SEGMENT_DAYS * EVENTS_PER_DAY} routing events after "
+                  f"the split, {int(two['state']['eco.n_active'])} species active) equals the "
+                  f"uninterrupted phase 2 bit for bit in all {len(one['state'])} leaves, the "
+                  f"generator state and the merged series ({len(merged)} keys) [{label}]",
+                  flush=True)
+
+            # 9.3: the staged chain, each stage a phase-2 segment from the
+            # previous stage's regridded restart
+            src = restart_of(sop)
+            for h, w in CHAIN_GRIDS:
+                d = os.path.join(tmp, f"chain{h}")
+                os.makedirs(d)
+                os.chdir(d)
+                t0 = time.perf_counter()
+                regrid_restart.main(["--in", src, "--out", f"regrid{h}.pt", "--nlat", str(h),
+                                     "--nlon", str(w)])
+                t_regrid = time.perf_counter() - t0
+                tag = f"9.3 {h}x{w}"
+                torch.cuda.reset_peak_memory_stats()
+                calls = KernelCalls()
+                try:
+                    record, series, counts, clock = sop_run(
+                        ["--restart-in", f"regrid{h}.pt", "--phase2-years",
+                         years(SEGMENT_DAYS), "--out", f"chain{h}.json"] + grid(h, w))
+                finally:
+                    calls.restore()
+                peak = torch.cuda.max_memory_allocated() / 2**30
+                want = path_counts(SEGMENT_DAYS * spd)
+                m = record["phase2"]["metrics"]
+                if counts != want or m["transient_chunks_total"] != 0 or clock.bootstraps:
+                    raise AssertionError(f"{tag}: launch counts {counts} != {want}, transient "
+                                         f"chunks {m['transient_chunks_total']}, flux-cache "
+                                         f"bootstraps {clock.bootstraps}")
+                series_check(series["phase2"], tag)
+                ts_lo, ts_hi, vmax = sidecar_state_check(
+                    load_sidecar(os.path.join("data", "world_ckpt.pt")), tag)
+                kern = stage_kernels(calls, label, tag)
+                ms, syh = chunk_rate(clock, spd, dt)
+                print(f"{tag} f32: regrid {t_regrid:.2f} s; host build: topography "
+                      f"{sum(clock.topo):.2f} s, river network {sum(clock.network):.2f} s, "
+                      f"world {sum(clock.builds):.2f} s (network included); "
+                      f"{SEGMENT_DAYS} d from the regridded restart, launches {counts}; no "
+                      f"flux-cache bootstrap, no transient chunk; T_s in [{ts_lo:.2f}, "
+                      f"{ts_hi:.2f}] K, max|u|,|v| {vmax:.2f} m/s; TOA_net "
+                      f"{m['TOA_net_mean_Wm2']:.4f} W/m2, Ts {m['Ts_mean_K']:.4f} K; "
+                      f"{ms:.4f} ms/step, {syh:.3f} sim-years/hour; peak device memory "
+                      f"{peak:.3f} GiB [{label}]", flush=True)
+                rows[tag] = {"ms_step": ms, "syh": syh, "kernels": kern, "peak_gib": peak,
+                             "build_s": sum(clock.builds), "regrid_s": t_regrid}
+                src = restart_of(d)
+
+            # 9.4: the world driver's plots and diversity diagnostics
+            d = os.path.join(tmp, "world")
+            os.makedirs(d)
+            os.chdir(d)
+            os.environ.update({"QD_PLOT_EVERY_DAYS": "1", "QD_ECO_DIVERSITY_ENABLE": "1",
+                               "QD_AUTOSAVE_ENABLE": "0"})
+            mpl = world_mod.have_matplotlib()
+            wd = world_mod.QingdaiWorld(verbose=False)
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            wd.run(duration_seconds=spd * wd.model.dt)
+            t_run = time.perf_counter() - t0
+            counts = kernels.launch_counts()
+            if counts != path_counts(spd):
+                raise AssertionError(f"9.4: launch counts {counts} != {path_counts(spd)}")
+            panels = sorted(os.listdir("output"))
+            eco = sorted(os.listdir(os.path.join("output", "ecology")))
+            want = ["community_day_", "diversity_summary_day_"] + (
+                ["alpha_effective_day_", "beta_local_braycurtis_day_"] if mpl else [])
+            want_panels = (["state_day_", "truecolor_day_", "ocean_day_", "ecology_day_",
+                            "plankton_day_"] if mpl else [])
+            lost = ([p for p in want if not any(f.startswith(p) for f in eco)]
+                    + [p for p in want_panels if not any(f.startswith(p) for f in panels)])
+            if lost or (not mpl and any(f.endswith(".png") for f in panels)):
+                raise AssertionError(f"9.4: missing {lost}; output {panels}, ecology {eco}")
+            print(f"9.4 world run() {spd} steps {H}x{W} f32 with QD_PLOT_EVERY_DAYS=1, "
+                  f"QD_ECO_DIVERSITY_ENABLE=1: matplotlib installed: {mpl}; wrote {panels}, "
+                  f"ecology/ {eco}; launches {counts}; run() {t_run:.2f} s, the IO worker's "
+                  f"panels and snapshot included [{label}]",
+                  flush=True)
+            rows["9.4"] = {"matplotlib": mpl, "run_s": t_run}
+        finally:
+            os.chdir(old_cwd)
+            for k in [k for k in os.environ if k.startswith("QD_")]:
+                del os.environ[k]
+            os.environ.update(old_env)
+    print(f"phase 9: {time.perf_counter() - started:.1f} s")
+    return rows
+
+
+def main(argv=None):
+    argv = sys.argv[1:] if argv is None else argv
+    # ``--phase 9``: the kernels' build and phase 9 alone, no record line
+    only = argv[1] if len(argv) == 2 and argv[0] == "--phase" else None
+    if argv and only != "9":
+        print(f"chip_smoke: unknown arguments {argv} (none, or --phase 9)", file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -1943,6 +2432,10 @@ def main():
     lib = build.build(verbose=True)
     build.load_library()
     print(f"kernels built in {time.perf_counter() - t0:.2f} s: {lib.name}")
+    if only == "9":
+        phase9_spinup(label)
+        print(f"chip_smoke: phase 9 alone in {time.perf_counter() - started:.1f} s; card: {label}")
+        return 0
 
     rec = phase3_kernels(dev, label, rate)
     st, counts = phase4_paths(label)
@@ -1956,12 +2449,13 @@ def main():
     phase7_adjoint(dev, label, rec)
     _, build_ms = phase8_analysis(label)
     phase8_osse(label, build_ms)
+    phase9_spinup(label)
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels_line = [{"name": name + form, "route": "cuda", "source": src, "replaces": rep,
                      "launches": counts[name + form], **{k: rec[name + form][k] for k in keys}}
                     for form in ("", "_batched") for name, src, rep, _ in KERNELS]
-    print(f"chip_smoke: phases 1-8 in {time.perf_counter() - started:.1f} s")
+    print(f"chip_smoke: phases 1-9 in {time.perf_counter() - started:.1f} s")
     print(f"card: {label}")
     print(json.dumps({"kernels": kernels_line}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -14,8 +14,9 @@
 // Departure points, bit-equal to `ops.advect.departure_indices` on the card.
 // The scalars are cast to T first, as PyTorch casts a Python number to the
 // tensor's type. PyTorch divides a CUDA tensor by a Python number as a
-// product with the reciprocal taken in T, so the launcher passes 1/a, 1/dlat
-// and 1/dlon rounded in T, and
+// product with the number's reciprocal, taken in double and rounded to T
+// (1/dlon rounded from float differs from it by an ulp at 361x720), so the
+// launcher passes 1/a, 1/dlat and 1/dlon so rounded, and
 //   dlam = (u*dt) / (a*cos)     (IEEE division of two tensors)
 //   dx = dlam * (1/dlon),  dy = ((v*dt) * (1/a)) * (1/dlat)
 //   dep_j = (T)j - dy,  dep_i = (T)i - dx.
@@ -159,9 +160,10 @@ int launch(const void* f, const void* u, const void* v, const void* cosl, void* 
            long long c_bs, int M, int H, int W, double dt, double a, double dlat,
            double dlon, void* stream) {
   if (n_members < 1 || n_members > 65535) return (int)cudaErrorInvalidValue;
-  // the scalars in T, and the reciprocals PyTorch multiplies by, rounded in T
-  const T dt_t = (T)dt, a_t = (T)a, dlat_t = (T)dlat, dlon_t = (T)dlon;
-  const T inv_a = T(1) / a_t, inv_dlat = T(1) / dlat_t, inv_dlon = T(1) / dlon_t;
+  // the scalars in T, and the reciprocals PyTorch multiplies by: taken in
+  // double, rounded to T
+  const T dt_t = (T)dt, a_t = (T)a;
+  const T inv_a = T(1.0 / a), inv_dlat = T(1.0 / dlat), inv_dlon = T(1.0 / dlon);
   const dim3 grid((W + kBX - 1) / kBX, (H + kBY - 1) / kBY, n_members);
   auto run = n_members > 1 ? launch_kernel<T, true> : launch_kernel<T, false>;
   run(grid, (cudaStream_t)stream, (const T*)f, (const T*)u, (const T*)v, (const T*)cosl,

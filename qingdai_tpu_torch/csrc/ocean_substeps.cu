@@ -277,10 +277,11 @@ __device__ __forceinline__ void tile_pass(const Args<T>& A, const Sub<T>& S, int
   T* C = sm.C;
 
   // the scalars in T; PyTorch divides by a Python number as a product with
-  // its reciprocal taken in T, so those divisions are products here too
+  // its reciprocal (taken in double, rounded to T), so those divisions are
+  // products here too
   const qd::Inv<T> inv = qd::inverses<T>(A.dlat, A.dlon, A.a);
-  const T a = T(A.a), inv_a = T(1) / a, inv_dlon = T(1) / T(A.dlon);
-  const T inv_two_dlon = T(1) / T(2.0 * A.dlon), inv_two_dlat = inv.two_dlat;
+  const T a = T(A.a), inv_a = T(1.0 / A.a), inv_dlon = T(1.0 / A.dlon);
+  const T inv_two_dlon = T(1.0 / (2.0 * A.dlon)), inv_two_dlat = inv.two_dlat;
   const T g = T(A.g), r_bot = T(A.r_bot), sub_dt = T(A.sub_dt);
   const T k4_dt = T(A.sub_dt / A.k4_nsub), dt_H = T(A.sub_dt * A.H_m);
   const T one_m_alpha = T(1.0 - A.adv_alpha), alpha = T(A.adv_alpha);

@@ -31,8 +31,9 @@ struct Tile {
   int r0, nr, nc;  // first global row, local rows, local columns (the pitch)
 };
 
-// the reciprocals of the Laplacian's scalars, each taken in T from the
-// scalar rounded to T, as PyTorch does
+// the reciprocals of the Laplacian's scalars, each taken in double and
+// rounded to T, as PyTorch takes the reciprocal of a Python number it
+// divides a CUDA tensor by
 template <typename T>
 struct Inv {
   T dlat, two_dlat, dlon2, a2;
@@ -40,7 +41,7 @@ struct Inv {
 
 template <typename T>
 __host__ __device__ __forceinline__ Inv<T> inverses(double dlat, double dlon, double a) {
-  return Inv<T>{T(1) / T(dlat), T(1) / T(2.0 * dlat), T(1) / T(dlon * dlon), T(1) / T(a * a)};
+  return Inv<T>{T(1.0 / dlat), T(1.0 / (2.0 * dlat)), T(1.0 / (dlon * dlon)), T(1.0 / (a * a))};
 }
 
 // local cells [ra, rb) x [ca, cb) of a tile

@@ -498,3 +498,15 @@ def surface_albedo_bands(es: EcoStatic, state: EcoState, cfg: EcologyConfig):
     R_eff = effective_leaf_reflectance(state)
     A = R_eff[:, None, None] * f[None] + (1.0 - f)[None] * cfg.soil_reflect
     return torch.where(es.land[None], torch.clamp(A, 0.0, 1.0), torch.nan)
+
+
+def canopy_height_map(es: EcoStatic, state: EcoState, cfg: EcologyConfig):
+    """Height proxy from layered LAI (population.py:296-320)."""
+    K = es.K
+    lai = state.LAI_SK
+    idx = torch.arange(1, K + 1, dtype=lai.dtype, device=lai.device)[:, None, None] / K
+    LAI_by_k = torch.sum(torch.clamp(lai, min=0.0), dim=0)
+    num = torch.sum(idx * LAI_by_k, dim=0)
+    den = torch.sum(LAI_by_k, dim=0) + 1e-12
+    Hmap = cfg.height_scale_m * (num / den)
+    return torch.where(es.land, Hmap, torch.nan)

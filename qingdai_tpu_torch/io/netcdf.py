@@ -7,7 +7,9 @@ can move ``data/`` directories between the implementations:
 
 - atmosphere.nc  — restart: u,v,h,T_s,cloud_cover,q,h_ice, ocean uo/vo/eta/Ts,
   W_land,S_snow,C_snow, land_mask, scalar t_seconds
-  (reference scripts/run_simulation.py:63-124)
+  (reference scripts/run_simulation.py:63-124); a restart path ending in
+  ``.pt`` takes a torch.save container of the same fields instead, which
+  needs no NetCDF library
 - ocean.nc       — uo,vo,eta,Ts (+day attr) (run_simulation.py:185-220)
 - topography.nc  — land_mask,base_albedo,friction[,elevation] (run_simulation.py:126-159)
 - ecology.nc     — LAI, species_weights, bands, R_species_nb, schema v1 with
@@ -91,88 +93,103 @@ def _atomic_nc(path):
 
 
 # ---------------------------------------------------------------------------
-# Restart (atmosphere.nc)
+# Restart (atmosphere.nc, or the torch.save container restart_*.pt)
 # ---------------------------------------------------------------------------
+
+# the restart's 2-D fields, in the order the file holds them: the reference
+# schema, then the humidity/cloud flux caches as EXTRA variables (the
+# reference's field-by-field tolerant loader ignores unknown names,
+# run_simulation.py:161-183, so the schema stays interchangeable, while our
+# own loader prefers them over the warm-cache bootstrap replay: a restart
+# then carries the exact caches, and the first step after it cannot blend
+# the legacy convergence-precip fallback at cold-start violence)
+RESTART_VARS = ("u", "v", "h", "T_s", "cloud_cover", "q", "h_ice", "uo", "vo", "eta", "Ts",
+                "W_land", "S_snow", "C_snow", "land_mask", "P_cond_flux_last", "E_flux_last",
+                "LH_last", "LH_release_last", "cloud_eff_last")
+PT_FORMAT = 1
+
+
+def is_pt(path) -> bool:
+    """Whether a restart path names the torch.save container (``.pt``)
+    rather than a NetCDF file."""
+    return str(path).endswith(".pt")
+
+
+def restart_fields(state, land_mask) -> dict:
+    """{name: float32 host array} of a state's restart fields (a state on
+    any device): what both containers hold, so they cannot drift apart."""
+    atmos, ocean, land = state.atmos, state.ocean, state.land
+    src = {"u": atmos.u, "v": atmos.v, "h": atmos.h, "T_s": atmos.T_s,
+           "cloud_cover": atmos.cloud_cover, "q": atmos.q, "h_ice": atmos.h_ice,
+           "W_land": land.W_land, "S_snow": land.S_snow, "C_snow": land.C_snow,
+           "land_mask": land_mask, "P_cond_flux_last": atmos.P_cond_flux_last,
+           "E_flux_last": atmos.E_flux_last, "LH_last": atmos.LH_last,
+           "LH_release_last": atmos.LH_release_last, "cloud_eff_last": atmos.cloud_eff_last}
+    if ocean is not None:
+        src.update(uo=ocean.uo, vo=ocean.vo, eta=ocean.eta, Ts=ocean.sst)
+    return {k: _np(src[k]).astype(np.float32) for k in RESTART_VARS
+            if src.get(k) is not None}
+
 
 def save_restart(path, grid_lat, grid_lon, state, land_mask,
                  t_seconds: Optional[float] = None) -> None:
-    """Write the minimal prognostic state (reference schema, f4 fields)."""
-    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-    atmos, ocean, land = state.atmos, state.ocean, state.land
-    with _atomic_nc(path) as tmp, Dataset(tmp, "w") as ds:
-        nlat, nlon = len(grid_lat), len(grid_lon)
-        ds.createDimension("lat", nlat)
-        ds.createDimension("lon", nlon)
-        ds.createVariable("lat", "f4", ("lat",))[:] = _np(grid_lat)
-        ds.createVariable("lon", "f4", ("lon",))[:] = _np(grid_lon)
-
-        def w(name, data):
-            if data is None:
-                return
-            ds.createVariable(name, "f4", ("lat", "lon"))[:] = \
-                _np(data).astype(np.float32)
-
-        w("u", atmos.u)
-        w("v", atmos.v)
-        w("h", atmos.h)
-        w("T_s", atmos.T_s)
-        w("cloud_cover", atmos.cloud_cover)
-        w("q", atmos.q)
-        w("h_ice", atmos.h_ice)
-        if ocean is not None:
-            w("uo", ocean.uo)
-            w("vo", ocean.vo)
-            w("eta", ocean.eta)
-            w("Ts", ocean.sst)
-        w("W_land", land.W_land)
-        w("S_snow", land.S_snow)
-        w("C_snow", land.C_snow)
-        w("land_mask", land_mask)
-        # humidity/cloud flux caches as EXTRA variables: the reference's
-        # field-by-field tolerant loader ignores unknown names
-        # (run_simulation.py:161-183), so the schema stays interchangeable,
-        # while our own loader prefers these over the warm-cache bootstrap
-        # replay — a NetCDF-only resume then carries the exact caches and the
-        # first post-restart step cannot blend the legacy convergence-precip
-        # fallback at cold-start violence (the reference restart's
-        # `getattr(gcm, 'P_cond_flux_last', 0)` deluge, BASELINE.md year-45
-        # transient).
-        w("P_cond_flux_last", atmos.P_cond_flux_last)
-        w("E_flux_last", atmos.E_flux_last)
-        w("LH_last", atmos.LH_last)
-        w("LH_release_last", atmos.LH_release_last)
-        w("cloud_eff_last", atmos.cloud_eff_last)
-        vts = ds.createVariable("t_seconds", "f8", ())
-        vts[...] = float(t_seconds) if t_seconds is not None else 0.0
-        ds.setncattr("title", "Qingdai GCM Restart")
-        ds.setncattr("creator", "qingdai_tpu_torch")
-        ds.setncattr("format", "v1")
+    """Write the minimal prognostic state (reference schema, f4 fields);
+    a ``.pt`` path takes the torch.save container instead."""
+    save_restart_fields(path, grid_lat, grid_lon, restart_fields(state, land_mask),
+                        t_seconds=t_seconds)
 
 
 def save_restart_fields(path, grid_lat, grid_lon, fields: dict,
                         t_seconds: Optional[float] = None) -> None:
-    """save_restart variant over a plain {name: 2-D array} dict (used by the
-    offline regrid tool, scripts/regrid_restart.py)."""
+    """save_restart over a plain {name: 2-D array} dict (the regrid tool's
+    writer). A ``.pt`` path writes the torch.save container, which needs no
+    NetCDF library: the same fields in float32, the grid and the epoch,
+    renamed into place as the NetCDF file is."""
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    t = float(t_seconds) if t_seconds is not None else 0.0
+    fields = {name: _np(data).astype(np.float32) for name, data in fields.items()
+              if data is not None and np.ndim(data) == 2}
+    if is_pt(path):
+        payload = {"format": PT_FORMAT, "t_seconds": t,
+                   "lat": torch.from_numpy(_np(grid_lat).astype(np.float32)),
+                   "lon": torch.from_numpy(_np(grid_lon).astype(np.float32)),
+                   "fields": {k: torch.from_numpy(v) for k, v in fields.items()}}
+        tmp = os.path.join(os.path.dirname(path) or ".", "." + os.path.basename(path) + ".tmp")
+        try:
+            torch.save(payload, tmp)
+            os.replace(tmp, path)
+        finally:
+            if os.path.exists(tmp):
+                os.remove(tmp)
+        return
     with _atomic_nc(path) as tmp, Dataset(tmp, "w") as ds:
         ds.createDimension("lat", len(grid_lat))
         ds.createDimension("lon", len(grid_lon))
         ds.createVariable("lat", "f4", ("lat",))[:] = _np(grid_lat)
         ds.createVariable("lon", "f4", ("lon",))[:] = _np(grid_lon)
         for name, data in fields.items():
-            if data is None or np.ndim(data) != 2:
-                continue
-            ds.createVariable(name, "f4", ("lat", "lon"))[:] = \
-                _np(data).astype(np.float32)
+            ds.createVariable(name, "f4", ("lat", "lon"))[:] = data
         vts = ds.createVariable("t_seconds", "f8", ())
-        vts[...] = float(t_seconds) if t_seconds is not None else 0.0
+        vts[...] = t
         ds.setncattr("title", "Qingdai GCM Restart")
         ds.setncattr("creator", "qingdai_tpu_torch")
         ds.setncattr("format", "v1")
 
 
 def load_restart(path) -> dict:
-    """Load restart file → dict of arrays (None for missing variables)."""
+    """Load a restart file → dict of arrays (None for missing variables),
+    the NetCDF file or, by its ``.pt`` suffix, the torch.save container."""
+    if is_pt(path):
+        payload = torch.load(path, map_location="cpu", weights_only=True)
+        if payload.get("format") != PT_FORMAT:
+            raise ValueError(f"{path}: restart format {payload.get('format')!r}, "
+                             f"not {PT_FORMAT}")
+        fields = payload["fields"]
+        out = {"lat": payload["lat"].numpy(), "lon": payload["lon"].numpy()}
+        out.update({name: fields[name].numpy() if name in fields else None
+                    for name in RESTART_VARS})
+        out["t_seconds"] = float(payload["t_seconds"])
+        return out
     out = {}
     with Dataset(path, "r") as ds:
         def r(name):
@@ -182,13 +199,7 @@ def load_restart(path) -> dict:
                 return None
         out["lat"] = r("lat")
         out["lon"] = r("lon")
-        for name in ["u", "v", "h", "T_s", "cloud_cover", "q", "h_ice",
-                     "uo", "vo", "eta", "Ts", "W_land", "S_snow", "C_snow",
-                     "land_mask",
-                     # extra flux-cache variables (absent in reference-written
-                     # files; written by save_restart above)
-                     "P_cond_flux_last", "E_flux_last", "LH_last",
-                     "LH_release_last", "cloud_eff_last"]:
+        for name in RESTART_VARS:
             out[name] = r(name)
         try:
             out["t_seconds"] = float(np.asarray(ds.variables["t_seconds"][...]))

@@ -1,7 +1,8 @@
 """Procedural topography (P004), offline NumPy tool: the port's copy of
-``qingdai_tpu/topography.py``'s generator and of its topography reader
-(``load_topography_from_netcdf``, for ``QD_TOPO_NC``); the exporter is not
-copied.
+``qingdai_tpu/topography.py``'s generator, its exporter
+(``export_topography_to_netcdf``, which the spin-up writes
+``data/topography.nc`` with) and its reader (``load_topography_from_netcdf``,
+for ``QD_TOPO_NC``).
 
 Reproduces the reference pipeline (pygcm/topography.py):
 L1 generalized-Gaussian continents at area-uniform random centers blended with
@@ -13,10 +14,13 @@ arrays as the JAX package.
 
 from __future__ import annotations
 
+import os
 from typing import Dict, Optional
 
 import numpy as np
 from scipy.ndimage import gaussian_filter
+
+from . import constants
 
 
 def _great_circle_distance_rad(lat_deg, lon_deg, lat0_deg, lon0_deg):
@@ -158,6 +162,43 @@ def generate_base_properties(mask, elevation=None, lat_mesh=None):
     friction = friction + 6.0e-6 * elev_norm * (mask == 1)
     friction = np.clip(friction, 5e-7, 3e-5)
     return albedo, friction
+
+
+def export_topography_to_netcdf(lat, lon, elevation, land_mask, base_albedo,
+                                friction, sea_level_m, out_path,
+                                target_land_frac=0.29, seed=None):
+    """Reference-compatible topography export (topography.py:353-423)."""
+    from .io.ncdataset import Dataset
+    os.makedirs(os.path.dirname(out_path) or ".", exist_ok=True)
+    n_lat, n_lon = land_mask.shape
+    with Dataset(out_path, "w") as ds:
+        ds.createDimension("lat", n_lat)
+        ds.createDimension("lon", n_lon)
+        vlat = ds.createVariable("lat", "f4", ("lat",))
+        vlon = ds.createVariable("lon", "f4", ("lon",))
+        vlat.units = "degrees_north"
+        vlon.units = "degrees_east"
+        vlat[:] = lat
+        vlon[:] = lon
+        ev = ds.createVariable("elevation", "f4", ("lat", "lon"), zlib=True, complevel=4)
+        mv = ds.createVariable("land_mask", "i1", ("lat", "lon"), zlib=True, complevel=4)
+        av = ds.createVariable("base_albedo", "f4", ("lat", "lon"), zlib=True, complevel=4)
+        fv = ds.createVariable("friction", "f4", ("lat", "lon"), zlib=True, complevel=4)
+        ev.units = "m"
+        ev[:, :] = elevation.astype(np.float32)
+        mv[:, :] = land_mask.astype(np.int8)
+        av[:, :] = base_albedo.astype(np.float32)
+        fv[:, :] = friction.astype(np.float32)
+        ds.title = "Qingdai Topography and Surface Properties"
+        ds.sea_level_m = float(sea_level_m)
+        ds.target_land_fraction = float(target_land_frac)
+        if seed is not None:
+            # extra (non-reference) attr: lets reusers detect that an
+            # existing file was generated with a different QD_SEED
+            ds.generation_seed = int(seed)
+        ds.planet_radius_m = constants.PLANET_RADIUS
+        ds.planet_omega_rad_s = constants.PLANET_OMEGA
+        ds.planet_axial_tilt_deg = constants.PLANET_AXIAL_TILT
 
 
 def load_topography_from_netcdf(path, lat_tgt, lon_tgt, regrid="auto"):

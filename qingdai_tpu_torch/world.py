@@ -11,10 +11,17 @@ host in one transfer.
 Where neither h5py nor netCDF4 is installed, the NetCDF files (the
 topography re-export, the hydrology network, the autosave's NetCDF set) are
 skipped with one printed line each, and a resume reads the sidecar alone.
-A ``QD_RESTART_IN`` that is given still raises if it cannot be read.
+A ``QD_RESTART_IN`` that is given still raises if it cannot be read; one
+ending in ``.pt`` is the torch.save restart container, which needs no NetCDF
+library. A ``QD_TOPO_NC`` that exists but cannot be read for want of a
+library raises; the topography can instead be handed over in memory
+(``topography=``, as the spin-up does there).
 
-Not in the port yet (ROADMAP Queue 1): plots (``viz/``), the diversity
-diagnostics and the persistent compile cache; ``run`` says so on one line.
+``run`` renders the reference's panels (``viz/``) at the start and every
+``QD_PLOT_EVERY_DAYS`` days, and the diversity diagnostics every
+``QD_ECO_DIVERSITY_EVERY_DAYS`` days when enabled, on the IO worker from a
+snapshot taken at dispatch; without matplotlib it says so on one line and
+writes no panel.
 """
 
 from __future__ import annotations
@@ -26,6 +33,7 @@ import signal
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
+from types import SimpleNamespace
 from typing import Optional
 
 import numpy as np
@@ -47,41 +55,62 @@ SIDECAR = "world_ckpt.pt"
 # groups of the NaN check (the albedo caches carry NaN sentinels by design)
 NANCHECK_GROUPS = ("atmos", "ocean", "land", "energy", "clock", "eco", "indiv", "phyto",
                    "routing")
+# what a topography handed over in memory holds (the arrays and attributes a
+# topography file holds)
+TOPO_ARRAYS = ("elevation", "land_mask", "base_albedo", "friction")
+TOPO_PROVENANCE = ("generation_seed", "target_land_fraction", "sea_level_m")
 
 
-def _to_host(state):
-    """A copy of ``state`` with every tensor on the CPU."""
+def _to_host(state, numpy=False):
+    """A copy of ``state`` with every tensor on the CPU, or as a NumPy array
+    with ``numpy=True`` (the snapshot the plots read)."""
+    def leaf(x):
+        x = x.cpu()
+        return x.numpy() if numpy else x
+
     def group(g):
         if g is None:
             return None
-        return dataclasses.replace(g, **{f.name: getattr(g, f.name).cpu()
+        return dataclasses.replace(g, **{f.name: leaf(getattr(g, f.name))
                                          for f in dataclasses.fields(g)
                                          if isinstance(getattr(g, f.name), torch.Tensor)})
     return dataclasses.replace(state, **{f.name: group(getattr(state, f.name))
                                          for f in dataclasses.fields(state)})
 
 
+def have_matplotlib() -> bool:
+    """Whether matplotlib can be imported (the panels need it)."""
+    try:
+        import matplotlib  # noqa: F401
+    except ImportError:
+        return False
+    return True
+
+
 class QingdaiWorld:
     """Owns (model, state) and runs the simulation loop, on the card unless
     ``device`` says otherwise. Files go under ``data/`` of the working
-    directory at construction."""
+    directory at construction. ``topography``, a dict of ``TOPO_ARRAYS``
+    (and optionally ``TOPO_PROVENANCE``) on the configured grid, takes the
+    place of ``QD_TOPO_NC``'s file."""
 
     def __init__(self, cfg: Optional[SimConfig] = None, verbose: bool = True,
-                 device="cuda"):
+                 device="cuda", topography: Optional[dict] = None):
         self.cfg = cfg or SimConfig.from_env()
         self.verbose = verbose
-        if self.cfg.run.restart_out and not ncio.have_netcdf():
+        if (self.cfg.run.restart_out and not ncio.is_pt(self.cfg.run.restart_out)
+                and not ncio.have_netcdf()):
             # refused now rather than after the whole run, which would end
             # with nothing written
             raise RuntimeError(
                 f"QD_RESTART_OUT={self.cfg.run.restart_out!r} writes a NetCDF restart, and "
-                "neither h5py nor netCDF4 can be imported here; unset it and resume from "
-                f"the autosave's torch.save sidecar, data/{SIDECAR}")
+                "neither h5py nor netCDF4 can be imported here; name a .pt file instead, or "
+                f"unset it and resume from the autosave's torch.save sidecar, data/{SIDECAR}")
         self.device = resolve_device(device)
         self.day_seconds = const.DAY_SECONDS
         self.data_dir = os.path.abspath("data")
         self.output_dir = os.path.abspath("output")
-        self._build()
+        self._build(topography)
         self._init_state()
         self._chunk_fns = {}
         self._hydro_prev = None  # (time_s, total_reservoir_mean)
@@ -105,20 +134,37 @@ class QingdaiWorld:
     def _data(self, name):
         return os.path.join(self.data_dir, name)
 
-    def _build(self):
+    def _build(self, topography=None):
         cfg = self.cfg
         n_lat, n_lon = cfg.run.n_lat, cfg.run.n_lon
         self.lat = np.linspace(-90, 90, n_lat)
         self.lon = np.linspace(0, 360, n_lon)
         lon_mesh, lat_mesh = np.meshgrid(self.lon, self.lat)
 
-        # Topography: external NetCDF or procedural (run_simulation.py:1197-1226).
-        # The procedural planet keeps only the mask (elevation None), as the
-        # reference driver does; full orography needs QD_TOPO_NC.
+        # Topography: in memory, external NetCDF or procedural
+        # (run_simulation.py:1197-1226). The procedural planet keeps only the
+        # mask (elevation None), as the reference driver does; full orography
+        # needs QD_TOPO_NC or the arrays in memory.
         elevation = None
         topo_prov = {}
         loaded = False
-        if cfg.run.topo_nc and os.path.exists(cfg.run.topo_nc):
+        if topography is not None:
+            elevation, land_mask, base_albedo, friction = (np.asarray(topography[k])
+                                                           for k in TOPO_ARRAYS)
+            if land_mask.shape != (n_lat, n_lon):
+                raise ValueError(f"the topography in memory is {land_mask.shape}, the grid "
+                                 f"{n_lat}x{n_lon}")
+            topo_prov = {k: topography[k] for k in TOPO_PROVENANCE if k in topography}
+            loaded = True
+            self._log("[Topo] Taken from memory.")
+        elif cfg.run.topo_nc and os.path.exists(cfg.run.topo_nc):
+            if not ncio.have_netcdf():
+                # the reference does not fall back here either: a planet
+                # without its orography would run on, mislabelled
+                raise RuntimeError(
+                    f"QD_TOPO_NC={cfg.run.topo_nc!r} is a NetCDF file, and neither h5py nor "
+                    "netCDF4 can be imported here; hand the topography over in memory "
+                    "(QingdaiWorld(topography=...)) or unset QD_TOPO_NC")
             try:
                 elevation, land_mask, base_albedo, friction = \
                     topo.load_topography_from_netcdf(cfg.run.topo_nc, self.lat, self.lon)
@@ -130,9 +176,9 @@ class QingdaiWorld:
                             topo_prov[k] = float(v) if k != "generation_seed" else int(v)
                 loaded = True
                 self._log(f"[Topo] Loaded: {cfg.run.topo_nc}")
-            except (OSError, ValueError, KeyError, ImportError) as e:
-                self._log(f"[Topo] Failed to load '{cfg.run.topo_nc}': {e} — procedural "
-                          "fallback.")
+            except (OSError, ValueError, KeyError) as e:
+                self._warn(f"[Topo] Failed to load '{cfg.run.topo_nc}': {e} — procedural "
+                           "fallback.")
         if not loaded:
             land_mask, _elev_discarded = topo.create_land_sea_mask(
                 lat_mesh, lon_mesh, cfg.run.target_land_frac, cfg.run.seed)
@@ -700,21 +746,37 @@ class QingdaiWorld:
         self._register_autosave_hooks()
         autosave_every_s = cfg.run.autosave_every_hours * (self.day_seconds / 24.0)
         next_autosave = self.t_seconds + autosave_every_s
+        diversity_next_day = self.t_seconds / self.day_seconds
+        # the reference's plot cadence counts 24-hour days
+        plot_every_s = cfg.run.plot_every_days * 24 * 3600.0
+        next_plot = self.t_seconds  # plot at start like the reference (i == 0)
+        self._viz_ok = have_matplotlib()
+        diversity = cfg.ecology.diversity_enable and self.state.eco is not None
+        if not self._viz_ok:
+            print("[Viz] matplotlib is not installed: no panels are written"
+                  + (" (the diversity snapshots and summaries still are)" if diversity else ""))
 
         self._log("\n--- Starting Simulation ---")
         self._log(f"Grid: {cfg.run.n_lat} x {cfg.run.n_lon} | dt={dt}s | "
                   f"steps={total_steps} (chunks of {chunk}) | device {self.device}")
-        print("[World] not in the port yet, skipped: plots (viz/, QD_PLOT_EVERY_DAYS), "
-              "diversity diagnostics, the persistent compile cache")
+        self._log("[World] no compile cache to set up: the port compiles only its CUDA "
+                  "kernels, once per source and flag set (kernels/build.py)")
         done = 0
         t_wall0 = time.time()
         while done < total_steps:
             n = min(chunk, total_steps - done)
+            if self.t_seconds >= next_plot:
+                if self._viz_ok:
+                    self._plots()
+                next_plot += plot_every_s
             diags = self.step_chunk(n)
             # one transfer a chunk; it waits for the chunk to finish
             self._print_diags_host(self.diags_to_host(diags), done,
                                    M.diag_stride(self.model, n))
             done += n
+            if diversity and self.t_seconds / self.day_seconds >= diversity_next_day:
+                self._diversity()
+                diversity_next_day += cfg.ecology.diversity_every_days
             if cfg.run.autosave_enable and self.t_seconds >= next_autosave:
                 try:
                     self.autosave_async()
@@ -731,6 +793,37 @@ class QingdaiWorld:
             ncio.save_restart(cfg.run.restart_out, self.lat, self.lon, self.state,
                               self.land_mask, t_seconds=self.t_seconds)
             self._log(f"[Restart] Saved final state to '{cfg.run.restart_out}'.")
+
+    def _plots(self):
+        """Render the panels on the IO worker from a host snapshot taken now
+        (the state's tensors are never written in place, so the reference
+        taken here is frozen; the copy to the host runs on the worker)."""
+        from .viz import plots as viz
+        state_ref = self.state
+        t_days = self.t_seconds / self.day_seconds
+
+        def render():
+            snap = SimpleNamespace(
+                state=_to_host(state_ref, numpy=True), cfg=self.cfg, model=self.model,
+                land_mask=self.land_mask, elevation=self.elevation, lat=self.lat,
+                lon=self.lon)
+            viz.plot_all(snap, t_days, self.output_dir)
+
+        self._prune_io_futures()
+        self._io_futures.append(self._io_pool.submit(render))
+
+    def _diversity(self):
+        """The diversity diagnostics of the ecology state as it is now, on
+        the IO worker: the metrics on the state's device, the panels (where
+        matplotlib is installed), the summary and the community snapshot
+        on the host."""
+        from .ecology import diversity as div
+        lat_mesh = np.tile(self.lat[:, None], (1, len(self.lon)))
+        self._prune_io_futures()
+        self._io_futures.append(self._io_pool.submit(
+            div.compute_and_plot, self.lat, self.lon, lat_mesh, self.state.eco,
+            self.land_mask, self.t_seconds / self.day_seconds, self.output_dir,
+            plot=self._viz_ok))
 
     # ---------------------------------------------------------------- factory
     @classmethod

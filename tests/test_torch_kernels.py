@@ -96,6 +96,18 @@ def test_advect_kernel_matches_plain(dev, dtype, M, case):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("case", ["winds", "poles"])
+@pytest.mark.parametrize("shape", [(361, 720), (721, 1440)])
+def test_advect_kernel_grids(dev, dtype, case, shape):
+    """K2's departure points bit-equal to departure_indices on the staged
+    chain's grids too: at 361×720 the float32 reciprocal of dlon rounded
+    from float differs by an ulp from PyTorch's (taken in double), which
+    moved pole-row departures by a cell."""
+    tol = 1e-6 if dtype == torch.float32 else 1e-12
+    k2_check(dev, dtype, 2, case, np.random.default_rng(3), tol, shape=shape)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("M,nsub,cap", [(5, 1, 0.2), (3, 1, 0.5), (3, 2, 0.5)])
 def test_hyper4_kernel_matches_plain(dev, dtype, M, nsub, cap):
     r = np.random.default_rng(3)

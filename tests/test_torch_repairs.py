@@ -1,7 +1,8 @@
-"""The port stands alone: it imports neither JAX nor the JAX package, keeps
-its own copies of the configuration catalog and the topography generator
-(equal to the JAX package's), and its entry points run on the card unless
-the caller asks for the CPU."""
+"""The port stands alone: it imports neither JAX nor the JAX package (nor its
+scripts), keeps its own copies of the configuration catalog, the topography
+generator and exporter, the point-ecology plots and the spin-up tools'
+host math (equal to the JAX package's), and its entry points run on the
+card unless the caller asks for the CPU."""
 
 import ast
 import dataclasses
@@ -16,11 +17,11 @@ from qingdai_tpu import flags
 from qingdai_tpu import topography as jtopo
 from qingdai_tpu_torch import config as TC
 from qingdai_tpu_torch import (assimilate, calibrate_joint, convert, entry, grid, model,
-                               run_simulation, sensitivity, world)
+                               regrid_restart, run_simulation, sensitivity, spinup, world)
 from qingdai_tpu_torch import topography as ttopo
 
 REPO = Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "jaxlib", "qingdai_tpu", "__graft_entry__")
+FORBIDDEN = ("jax", "jaxlib", "qingdai_tpu", "__graft_entry__", "scripts")
 
 
 def _port_sources():
@@ -37,7 +38,7 @@ def _absolute_imports(path: Path):
 
 def test_port_sources_import_no_jax():
     """No file of the port and not chip_smoke.py imports JAX, the JAX
-    package or the JAX entry module, at any place in the file."""
+    package, its scripts or the JAX entry module, at any place in the file."""
     assert len(_port_sources()) > 30
     names = {p.relative_to(REPO).as_posix() for p in _port_sources()}
     assert {"qingdai_tpu_torch/io/netcdf.py", "qingdai_tpu_torch/io/ncdataset.py",
@@ -47,7 +48,9 @@ def test_port_sources_import_no_jax():
             "qingdai_tpu_torch/run_ensemble.py", "qingdai_tpu_torch/ops/members.py",
             "qingdai_tpu_torch/adjoint.py", "qingdai_tpu_torch/sensitivity.py",
             "qingdai_tpu_torch/calibrate_joint.py", "qingdai_tpu_torch/assim.py",
-            "qingdai_tpu_torch/assimilate.py"} <= names
+            "qingdai_tpu_torch/assimilate.py", "qingdai_tpu_torch/spinup.py",
+            "qingdai_tpu_torch/regrid_restart.py", "qingdai_tpu_torch/ecology/diversity.py",
+            "qingdai_tpu_torch/viz/plots.py", "qingdai_tpu_torch/viz/ploter.py"} <= names
     bad = [(p.relative_to(REPO).as_posix(), m) for p in _port_sources()
            for m in _absolute_imports(p) if m.split(".")[0] in FORBIDDEN]
     assert bad == []
@@ -118,17 +121,15 @@ def _members(module):
             if (inspect.isfunction(o) or inspect.isclass(o)) and o.__module__ == module.__name__}
 
 
-@pytest.mark.parametrize("name", ["hydro_network", "io.ncdataset", "topography"])
+@pytest.mark.parametrize("name", ["hydro_network", "io.ncdataset", "topography", "viz.ploter"])
 def test_copies_equal_their_originals(name):
     """Every function and class of the port's copies of JAX-free modules has
     the source of the original's, the package's own name aside (a file's
-    creator attribute); the topography copy holds the generator and the
-    reader."""
+    creator attribute); the topography copy holds the generator, the
+    exporter and the reader."""
     import importlib
     orig = _members(importlib.import_module(f"qingdai_tpu.{name}"))
     copy = _members(importlib.import_module(f"qingdai_tpu_torch.{name}"))
-    if name == "topography":
-        orig.pop("export_topography_to_netcdf")
     assert set(copy) == set(orig)
     for n, src in orig.items():
         assert copy[n].replace("qingdai_tpu_torch", "qingdai_tpu") == src, n
@@ -147,4 +148,25 @@ def test_driver_and_cli_default_to_the_card(monkeypatch, tmp_path):
         calibrate_joint.main(["--json"])
     with pytest.raises(RuntimeError, match="device='cpu'"):
         assimilate.main(["--json"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        spinup.main(["--phase1-years", "0.001"])
     assert not (tmp_path / "data").exists() and not (tmp_path / "output").exists()
+
+
+@pytest.mark.parametrize("module,names", [
+    ("regrid_restart", ("regrid_bilinear",)),
+    ("spinup", ("acceptance_metrics", "_pick_trend", "build_criteria"))])
+def test_spinup_host_math_equals_the_scripts(module, names):
+    """The spin-up tools' host math is the JAX scripts' source, the import of
+    the planet's year aside (the port's own orbital module)."""
+    import importlib
+    import inspect
+    orig = importlib.import_module(f"scripts.{module}")
+    copy = {"regrid_restart": regrid_restart, "spinup": spinup}[module]
+    for n in names:
+        src = inspect.getsource(getattr(copy, n)).replace(
+            "from .physics.orbital import", "from qingdai_tpu.physics.orbital import")
+        assert src == inspect.getsource(getattr(orig, n)), n
+    if module == "spinup":
+        assert (copy.KEYS, copy.OPT_KEYS, copy.AUD_INTERNAL) == (orig.KEYS, orig.OPT_KEYS,
+                                                                  orig.AUD_INTERNAL)
