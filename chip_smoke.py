@@ -128,9 +128,46 @@ Phases, each of which raises on failure (exit code non-zero):
      and one printed line), and whether matplotlib is installed.
      ``python3 chip_smoke.py --phase 9`` builds the kernels and runs phase 9
      alone, without the record lines.
+ 10. multi-GPU (``qingdai_tpu_torch.parallel``) on the one card: 2 and 4
+     ranks, each a process of its own, over gloo, which stages the card's
+     tensors through host memory (NCCL refuses two ranks on one device).
+     The collectives sync with the host, so phase 10 does not run under
+     sync-debug "error"; its times are of N ranks sharing one card, not a
+     scaling number. One spawn of 2 ranks and one of 4. 10.1: at 181×360 in
+     float32 and float64 each sharded op and form on the ranks' own columns
+     (``par_sharded_ops``) against the whole grid's call on the card: the
+     pads, the Gaussian filters (reflect and wrap seams), the gradients
+     (one-sided seams), divergence, vorticity, ∇², Shapiro, the zonal FFT
+     filter, K1 on the gathered field, K2's sharded form and K3 on the
+     padded block (its static operands exchanged, and cut from the shard
+     grid's padded maps) bit-equal, and the static operands cut from the
+     padded maps equal to the exchanged ones; K4's sharded form and the ocean step within
+     phase 3's tolerances (the η mean's and the polar ring means' order of
+     summation), the area means within 1e-5 (float32) / 1e-12 (float64);
+     K2's and K4's sharded forms against their plain versions on the same
+     tensors; then each one's device ms a call at the 2- and 4-rank shard
+     shapes (one process, an inner rank's columns; K4's cross-rank sum its
+     own) beside its plain version on the shard and, for K2,
+     ``F.grid_sample``, with its bound. 10.2: the flagship planet (181×360
+     float32, every default on) sharded 2 and 4 ways, 12 warm steps then a
+     timed day of 240 with the diags every 24 steps (QD_DIAG_EVERY: a
+     rank-step's collectives are ~52 without the diags, ~118 with them):
+     K1, K2's sharded form, K3 and K4's sharded form launched 3, 3, 1 and 2
+     (its tile pass and its finish) times a rank-step on every rank and no
+     other form; the gathered state
+     and the diags finite and physical, a routing event's closure; ms/step,
+     and collectives, halo bytes, gathered bytes and all-reduced bytes a
+     rank-step. 10.3 (4 ranks): the dry run (``parallel.dryrun``) at
+     181×360, 3 resynced half-day segments, each under its bound. 10.4 (2
+     ranks): the member mesh, 8 flagship members over 2 ranks for 24 steps
+     against the unsharded B = 8 run (bit-equal, or the largest difference
+     and its leaf), and one LETKF analysis of the gathered ensemble against
+     the unsharded one. ``python3 chip_smoke.py --phase 10`` builds the
+     kernels and runs phase 10 alone, without the record lines.
 The line before the last is the kernels' JSON record, the four single forms
-(launches from phase 4's main path) and the four batched forms (launches
-from phase 4b's day at B = 8); the last line is
+(launches from phase 4's main path), the four batched forms (launches from
+phase 4b's day at B = 8) and the sharded forms of K2 and K4 (launches from
+rank 0's day in 10.2 at 2 ranks); the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -203,11 +240,14 @@ def time_ms(fn, reps=50):
 # empty (PERF.md §7, scripts/profiler_check.py). So a profile idles this
 # long before its first call. A profile that still holds no device event is
 # printed, with what it did hold, and taken again; a function with
-# PROFILE_TRIES empty profiles in a row raises.
+# PROFILE_TRIES empty profiles in a row is timed with CUDA events instead
+# (``device_profile``): late in a long process the profiler has returned
+# only empty profiles for minutes (PERF.md §6).
 PROFILE_WAIT_S = 0.05
 PROFILE_TRIES = 3
-# profiles taken, and (what, host events, launch calls) of each empty one
-PROFILE_LOG = {"taken": 0, "empty": []}
+# profiles taken, (what, host events, launch calls) of each empty one, and
+# what was timed with CUDA events instead
+PROFILE_LOG = {"taken": 0, "empty": [], "events": []}
 
 
 def take_profile(fn, reps=20, pads=(PROFILE_WAIT_S, 0.0)):
@@ -229,7 +269,9 @@ def take_profile(fn, reps=20, pads=(PROFILE_WAIT_S, 0.0)):
 def device_profile(fn, reps=20, what="a function"):
     """(device ms, device launches) of one call: the card's kernel (and
     memset/copy) times and count under torch.profiler over ``reps`` calls,
-    per call."""
+    per call. After PROFILE_TRIES empty profiles, CUDA events around the
+    ``reps`` calls in a row (an upper bound: gaps between launches count)
+    and the host's launch calls, printed as such."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
@@ -243,7 +285,18 @@ def device_profile(fn, reps=20, what="a function"):
         print(f"torch.profiler: no device event in profile {attempt} of {PROFILE_TRIES} of "
               f"{what} ({len(host)} host events, {launch_calls} of them launch calls)",
               flush=True)
-    raise AssertionError(f"the profiler saw no device time in {PROFILE_TRIES} profiles of {what}")
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    b.synchronize()
+    ms = a.elapsed_time(b) / reps
+    PROFILE_LOG["events"].append(what)
+    print(f"torch.profiler: {what} timed with CUDA events instead: {ms:.5f} ms a call over "
+          f"{reps} calls in a row (gaps between launches included), {launch_calls / reps:g} "
+          "host launch calls a call", flush=True)
+    return ms, launch_calls / reps
 
 
 def device_ms(fn, reps=20, what="a function"):
@@ -977,10 +1030,17 @@ def routing_event_check(mdl, st, label):
 def path_counts(steps, form=""):
     """Each wrapper's launches over ``steps`` steps of a path: the main
     path's 3, 3, 1 and 1 a step of the forms named ``form`` ("" the single
-    forms, "_batched" the batched ones), none of the others."""
-    other = "_batched" if form == "" else ""
-    want = {name + form: per_step * steps for name, _, _, per_step in KERNELS}
-    return {**want, **{name + other: 0 for name, *_ in KERNELS}}
+    forms, "_batched" the batched ones, "_sharded" a rank of the longitude
+    mesh, which runs K2's and K4's sharded forms, K4's with two launches a
+    step, and K1's and K3's single forms), none of the others."""
+    from qingdai_tpu_torch import kernels
+
+    sharded = {name: per_step for name, _, _, per_step in SHARDED_KERNELS}
+    want = {}
+    for name, _, _, per_step in KERNELS:
+        key = name + form if name + form in kernels.wrappers() else name
+        want[key] = sharded.get(key, per_step) * steps
+    return {k: want.get(k, 0) for k in kernels.wrappers()}
 
 
 def phase4_paths(label):
@@ -2397,12 +2457,575 @@ def phase9_spinup(label):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# phase 10: multi-GPU. Every rank is a process of its own on the one card
+# (gloo, which stages the card's tensors through host memory: NCCL refuses
+# two ranks on one device). The collectives sync with the host, so phase 10
+# does not run under sync-debug "error". The times are of N ranks sharing
+# one card, not a scaling number. One spawn of 2 ranks runs 10.1, 10.2 and
+# 10.4, one of 4 ranks 10.1, 10.2 and 10.3.
+# ---------------------------------------------------------------------------
+
+PAR_RANKS = (2, 4)
+PAR_WARM = 12                   # steps before 10.2's timed day
+# 10.2's diag cadence (QD_DIAG_EVERY): a rank-step's collectives are ~52
+# without the diags and ~118 with them (each diag is a sum over ranks)
+PAR_DIAG_EVERY = 24
+PAR_ENS_B, PAR_ENS_STEPS = 8, 24
+PAR_DRYRUN_SEGS = 3
+# (sharded form, CUDA source, TPU kernel it replaces, launches a rank-step:
+# K4's form launches its tile pass and its finish once each a substep)
+SHARDED_KERNELS = [
+    ("advect_bilinear_sharded", "qingdai_tpu_torch/csrc/advect_bilinear.cu",
+     "qingdai_tpu/ops/pallas_advect.py:65", 3),
+    ("ocean_substeps_sharded", "qingdai_tpu_torch/csrc/ocean_substeps.cu",
+     "qingdai_tpu/ops/pallas_ocean.py:200", 2),
+]
+# 10.1: the results that equal the whole grid's bit for bit, and the
+# tolerances of the others (of each result's max |value|): K4's planes as in
+# phase 3 (the η mean's order of summation), the area means theirs
+PAR_EXACT = ("pad_wrap", "pad_reflect", "pad_nearest", "gauss_reflect", "gauss_wrap",
+             "grad_lon", "grad_lat", "div", "vort", "lap", "shapiro", "spectral", "hyper4",
+             "hyper4_grid", "advect", "median")
+PAR_TOL = {"float32": 1e-4, "float64": 1e-12}
+PAR_MEAN_TOL = {"float32": 1e-5, "float64": 1e-12}
+
+
+# The sharded ops of 10.1 (and of tests/test_torch_parallel.py) on one set of
+# inputs: on a rank's columns (``par_sharded_ops``) and on the whole grid
+# (``par_whole_ops``). Every result but the pads and the η mean's
+# consequences is bit-equal to the whole grid's: a halo, a gather and a
+# kernel move or compute the same values in the same order. The η mean of
+# K4 (and through it η) differs by its order of summation, and the means by
+# theirs.
+PAR_PAD = 3                     # the pads' columns
+PAR_MODES = ("wrap", "reflect", "nearest")
+PAR_TRACERS = 10                # chlorophyll planes riding K4's gather
+
+
+def par_op_inputs(n_lat: int, n_lon: int, seed: int = 0) -> dict:
+    """Whole-grid float64 inputs from ``seed``: a field F, winds u, v, a
+    3-field stack with its ∇⁴ coefficient maps, a precipitation-like field
+    for the median, and an ocean state with its forcing, land and ice."""
+    from qingdai_tpu_torch.grid import make_grid
+    from qingdai_tpu_torch.topography import create_land_sea_mask
+
+    rng = np.random.default_rng(seed)
+    lat = np.linspace(-90.0, 90.0, n_lat)
+    lon = np.linspace(0.0, 360.0, n_lon)
+    lon_m, lat_m = np.meshgrid(lon, lat)
+    land, _ = create_land_sea_mask(lat_m, lon_m, seed=42)
+    cos = np.cos(np.deg2rad(lat_m))
+    smooth = lambda x: (x + np.roll(x, 1, 1) + np.roll(x, -1, 1)) / 3.0
+    g = make_grid(n_lat, n_lon, device="cpu", dtype=torch.float64)
+    shape = (n_lat, n_lon)
+    return {
+        "F": 280.0 + 30.0 * smooth(rng.standard_normal(shape)),
+        "u": 15.0 * smooth(rng.standard_normal(shape)),
+        "v": 10.0 * smooth(rng.standard_normal(shape)),
+        "stack": rng.standard_normal((3,) + shape),
+        "k4": (0.02 * g.k4_map_unit.numpy() / 300.0)[None] * np.array([1.0, 1.0, 0.5])[:, None,
+                                                                                       None],
+        "pos": np.maximum(rng.standard_normal(shape), 0.0) * 1e-4,
+        "land": land.astype(np.int32),
+        "uo": 0.2 * rng.standard_normal(shape) * (land == 0),
+        "vo": 0.2 * rng.standard_normal(shape) * (land == 0),
+        "eta": 0.1 * rng.standard_normal(shape) * (land == 0),
+        "sst": 275.0 + 25.0 * cos + rng.standard_normal(shape),
+        "tracers": np.abs(rng.standard_normal((PAR_TRACERS,) + shape)),
+        "Q": 100.0 * rng.standard_normal(shape),
+        "ice": (np.abs(lat_m) > 70.0) & (land == 0) & (rng.random(shape) < 0.5),
+    }
+
+
+def par_ops(grid, mesh, t: dict, cfg, plain_too: bool) -> dict:
+    """The ops on tensors ``t`` (the rank's columns, or the whole grid with
+    ``mesh`` None). On a rank also ``padded_operands``: how many ranks made
+    a static operand from the shard grid's padded maps (K3's ∇⁴ maps and
+    cos map, K4's ``forc`` and ``geo``) that differs from the exchanged one."""
+    from qingdai_tpu_torch import constants as const
+    from qingdai_tpu_torch.grid import divergence, grad_lonlat, vorticity
+    from qingdai_tpu_torch.ocean import (_substeps, ocean_step, ocean_substeps,
+                                         ocean_substeps_sharded, sharded_pad, substep_operands)
+    from qingdai_tpu_torch.ops.advect import advect_semilag_multi, advect_semilag_multi_ref
+    from qingdai_tpu_torch.ops.reductions import (area_mean, area_mean_compensated,
+                                                  masked_median_of_positive)
+    from qingdai_tpu_torch.ops.smooth import gaussian_filter
+    from qingdai_tpu_torch.ops.stencil import (hyperdiffuse_multi, laplacian_sphere,
+                                               shapiro_filter, spectral_zonal_filter)
+    from qingdai_tpu_torch.parallel.halo import all_gather_lon, all_reduce_sum, pad_lon, single
+    from qingdai_tpu_torch.state import OceanState
+
+    a, dlat, dlon = const.PLANET_RADIUS, grid.dlat_rad, grid.dlon_rad
+    F, u, v, stack = t["F"], t["u"], t["v"], t["stack"]
+    out = {f"pad_{m}": pad_lon(F, PAR_PAD, m, mesh) for m in PAR_MODES}
+    out["gauss_reflect"] = gaussian_filter(F, 1.0, mesh=mesh)
+    out["gauss_wrap"] = gaussian_filter(F, 1.0, "wrap", "wrap", mesh=mesh)
+    out["grad_lon"], out["grad_lat"] = grad_lonlat(grid, F)
+    out["div"] = divergence(grid, u, v)
+    out["vort"] = vorticity(grid, u, v)
+    out["lap"] = laplacian_sphere(F, dlat, dlon, grid.coslat_cap_02, a, mesh)
+    out["shapiro"] = shapiro_filter(stack, 2, mesh)
+    out["spectral"] = spectral_zonal_filter(stack[0], grid.n_lon, 0.75, 0.5, mesh)
+    out["hyper4"] = hyperdiffuse_multi(stack, t["k4"], 300.0, 2, dlat, dlon, grid.coslat_cap_02,
+                                       a, mesh)
+    # K3's static operands from the grid's maps as the dynamics makes them:
+    # on a rank the shard grid's padded maps, which need no exchange
+    gs = grid.padded if grid.padded is not None else grid
+    coef = torch.tensor([1.0, 1.0, 0.5], dtype=F.dtype, device=F.device)[:, None, None]
+    out["hyper4_grid"] = hyperdiffuse_multi(stack, (0.02 * gs.k4_map_unit / 300.0)[None] * coef,
+                                            300.0, 2, dlat, dlon, gs.coslat_cap_02, a, mesh)
+    adv_args = (u, v, 300.0, a, dlat, dlon, grid.coslat_cap_tiny)
+    out["advect"] = advect_semilag_multi(stack[:2].contiguous(), *adv_args, mesh)
+    out["median"] = masked_median_of_positive(t["pos"], 1e-6, mesh)
+    out["area_mean"] = area_mean(F, grid.area_w, mesh=mesh)
+    out["area_mean_c"] = area_mean_compensated(F, grid.area_w, mesh=mesh)
+
+    ocfg = cfg.ocean
+    land = t["land"]
+    ocn = OceanState(uo=t["uo"], vo=t["vo"], eta=t["eta"], sst=t["sst"])
+    pad, differ = sharded_pad(ocfg), 0
+    if not single(mesh):
+        differ += not torch.equal(grid.padded_by(4).coslat_cap_02,
+                                  pad_lon(grid.coslat_cap_02, 4, "wrap", mesh))
+    for n_sub, tracers in ((1, t["tracers"]), (2, None)):
+        ops = substep_operands(grid, ocfg, land, ocn, u, v, t["Q"], t["ice"], 300.0, n_sub,
+                               tracers)
+        mom, st, forc, geo, params = ops
+        if single(mesh):
+            res = ocean_substeps(mom, st, forc, geo, **params)
+        else:
+            _, _, forc_p, geo_p, _ = substep_operands(grid, ocfg, land, ocn, u, v, t["Q"],
+                                                      t["ice"], 300.0, n_sub, tracers, pad)
+            differ += not (torch.equal(forc_p, pad_lon(forc, pad, "wrap", mesh))
+                           and torch.equal(geo_p, pad_lon(geo, pad, "wrap", mesh)))
+            res = ocean_substeps_sharded(mom, st, forc_p, geo_p, mesh, **params)
+        out[f"k4_mom_{n_sub}"], out[f"k4_st_{n_sub}"] = res
+        if plain_too:
+            out[f"k4_mom_{n_sub}_plain"], out[f"k4_st_{n_sub}_plain"] = _substeps(
+                mom, st, forc, geo, **params, mesh=mesh)
+    if not single(mesh):
+        out["padded_operands"] = all_reduce_sum(
+            torch.tensor(float(differ), dtype=torch.float64, device=F.device), mesh)
+    if plain_too:
+        lon0 = 0 if single(mesh) else mesh.rank * F.shape[-1]
+        out["advect_plain"] = advect_semilag_multi_ref(
+            all_gather_lon(stack[:2].contiguous(), mesh), *adv_args, lon0)
+    ocn2, _ = ocean_step(grid, ocfg, land, ocn, u, v, t["Q"], t["ice"], 0, 300.0, 1)
+    for f in ("uo", "vo", "eta", "sst"):
+        out[f"ocean_{f}"] = getattr(ocn2, f)
+    return out
+
+
+def par_tensors(inputs: dict, device, dtype, cols=None) -> dict:
+    dtypes = {"land": torch.int32, "ice": torch.bool}
+    out = {}
+    for k, x in inputs.items():
+        x = np.asarray(x)
+        if cols is not None:
+            x = x[..., cols[0]:cols[0] + cols[1]]
+        out[k] = torch.as_tensor(np.ascontiguousarray(x)).to(device=device,
+                                                             dtype=dtypes.get(k, dtype))
+    return out
+
+
+def par_whole_ops(inputs: dict, device="cpu", dtype=torch.float64) -> dict:
+    """The ops on the whole grid (numpy results)."""
+    from qingdai_tpu_torch.config import SimConfig
+    from qingdai_tpu_torch.grid import make_grid
+
+    n_lat, n_lon = np.asarray(inputs["F"]).shape
+    grid = make_grid(n_lat, n_lon, device=device, dtype=dtype)
+    out = par_ops(grid, None, par_tensors(inputs, grid.lat.device, dtype), SimConfig.from_env(),
+                  False)
+    return {k: v.cpu().numpy() for k, v in out.items()}
+
+
+def par_sharded_ops(mesh, inputs: dict, dtype_names=("float64",), plain_too: bool = False):
+    """The ops on this rank's columns of ``inputs`` in each dtype of
+    ``dtype_names``, each result gathered whole (a pad: every rank's padded
+    block side by side), on a shard grid with the model's padded maps
+    (``static_pad``); rank 0 returns {dtype name: {op: numpy}}, the others
+    None. ``plain_too`` adds the plain versions of K2's and K4's sharded
+    forms on the same tensors."""
+    from qingdai_tpu_torch.config import SimConfig
+    from qingdai_tpu_torch.grid import make_grid
+    from qingdai_tpu_torch.parallel.halo import all_gather_lon
+    from qingdai_tpu_torch.parallel.mesh import shard_grid, static_pad
+
+    n_lat, n_lon = np.asarray(inputs["F"]).shape
+    cfg = SimConfig.from_env()
+    res = {}
+    for name in dtype_names:
+        dtype = getattr(torch, name)
+        grid = shard_grid(make_grid(n_lat, n_lon, device=mesh.device, dtype=dtype), mesh,
+                          static_pad(cfg))
+        t = par_tensors(inputs, mesh.device, dtype, cols=(grid.lon0, grid.width))
+        out = par_ops(grid, mesh, t, cfg, plain_too)
+        res[name] = {k: (all_gather_lon(v, mesh) if v.dim() else v).cpu().numpy()
+                     for k, v in out.items()}
+    return res if mesh.rank == 0 else None
+
+
+def par_rank(mesh, inputs, day_steps, ens_members, dryrun_segs, rate):
+    """One rank of phase 10: 10.1's ops in float32 and float64 (with the
+    plain versions of K2's and K4's sharded forms), 10.2's day, then 10.4's
+    member mesh (``ens_members`` > 0) or 10.3's dry run (``dryrun_segs`` >
+    0); with ``rate`` (the card's copy rate), 10.1's times on rank 0 while
+    the other ranks wait at a barrier. Rank 0 returns every result; the
+    others their launch counts."""
+    import torch.distributed as dist
+    from qingdai_tpu_torch.parallel import dryrun
+
+    out = {"ops": par_sharded_ops(mesh, inputs, ("float32", "float64"), plain_too=True),
+           "day": par_day(mesh, day_steps)}
+    if ens_members:
+        out["ens"] = par_ens(mesh, ens_members, PAR_ENS_STEPS)
+    if dryrun_segs:
+        t0 = time.perf_counter()
+        out["dryrun"] = dryrun.dryrun_rank(mesh, H, W, dryrun_segs)
+        out["dryrun"]["seconds"] = time.perf_counter() - t0
+    if rate:
+        dist.barrier()
+        if mesh.rank == 0:
+            out["times"] = sharded_times(mesh.device, rate)
+        dist.barrier()
+    return out
+
+
+def par_day(mesh, steps):
+    """10.2 on a rank: the flagship planet's shard, a warm chunk, then a
+    timed chunk of ``steps`` steps (diags every ``PAR_DIAG_EVERY``) with the
+    launch counters and the mesh's collective counters from 0; the gathered
+    state's check on rank 0."""
+    import torch.distributed as dist
+    from qingdai_tpu_torch import entry, kernels
+    from qingdai_tpu_torch import model as M
+    from qingdai_tpu_torch.parallel.mesh import gather_state, shard_model_statics, shard_state
+
+    t0 = time.perf_counter()
+    mdl, st = entry.build_world(H, W, extra_env=MAIN, device=mesh.device)
+    mdl = shard_model_statics(mdl, mesh)
+    st = shard_state(st, mesh, W)
+    build_s = time.perf_counter() - t0
+    st, _ = M.make_chunk_fn(mdl, PAR_WARM)(st)
+    chunk = M.make_chunk_fn(mdl, steps, diag_every=PAR_DIAG_EVERY)
+    torch.cuda.synchronize()
+    dist.barrier()
+    kernels.reset_launch_counts()
+    mesh.reset_stats()
+    t0 = time.perf_counter()
+    st, diags = chunk(st)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    out = {"counts": kernels.launch_counts(), "stats": dict(mesh.stats), "wall_s": wall,
+           "build_s": build_s, "width": mdl.grid.width}
+    whole = gather_state(st, mesh, W)
+    if mesh.rank == 0:
+        ts, umax = check_run(whole, diags, steps // PAR_DIAG_EVERY, eco=True)
+        rd, _ = check_routing(diags)
+        out.update(ts=float(ts[-1]), umax=umax, toa=float(diags["TOA_net"][-1]),
+                   ts_field=(float(whole.atmos.T_s.min()), float(whole.atmos.T_s.max())),
+                   routed=rd["routing_routed_mass_kg"])
+    return out
+
+
+def par_ens(mesh, B, steps):
+    """10.4 on a rank: its B/n members of the flagship ensemble for
+    ``steps`` steps, gathered; rank 0 returns the whole ensemble's leaves
+    as numpy and its analysis fields, every rank its launch counts."""
+    from qingdai_tpu_torch import assim as A
+    from qingdai_tpu_torch import convert, entry, kernels
+    from qingdai_tpu_torch import ensemble as E
+
+    t0 = time.perf_counter()
+    mdl, _ = entry.build_world(H, W, extra_env=MAIN, device=mesh.device)
+    ens, gens = E.init_ensemble(mdl, B, h_amp=20.0)
+    ens, gens = E.shard_ensemble(ens, mesh, gens)
+    kernels.reset_launch_counts()
+    ens, _ = E.make_ensemble_chunk_fn(mdl, steps)(ens, gens)
+    counts = kernels.launch_counts()
+    whole = E.gather_ensemble(ens, mesh)
+    if mesh.rank:
+        return {"counts": counts}
+    return {"counts": counts, "state": convert.world_to_numpy(whole),
+            "X": A.gather_fields(whole, ASSIM_FIELDS).cpu(), "seconds": time.perf_counter() - t0}
+
+
+def wrap_cols(x, lon0, w, pad):
+    """Columns lon0 − pad .. lon0 + w + pad − 1 of x, wrapped: the rank's
+    padded block as the halo exchange makes it."""
+    n = x.shape[-1]
+    idx = torch.remainder(torch.arange(lon0 - pad, lon0 + w + pad, device=x.device), n)
+    return x.index_select(-1, idx).contiguous()
+
+
+def reached_cells(dj, di, H, W) -> int:
+    """How many cells of an [H, W] field bilinear interpolation at the
+    fractional indices (dj, di) reads: each point's four corners, wrapped,
+    counted once."""
+    j0 = torch.remainder(torch.floor(dj).to(torch.int64), H)
+    i0 = torch.remainder(torch.floor(di).to(torch.int64), W)
+    hit = torch.zeros(H * W, dtype=torch.bool, device=dj.device)
+    for dj_, di_ in ((0, 0), (0, 1), (1, 0), (1, 1)):
+        hit[(torch.remainder(j0 + dj_, H) * W + torch.remainder(i0 + di_, W)).reshape(-1)] = True
+    return int(hit.sum())
+
+
+def sharded_times(dev, rate) -> list:
+    """10.1's times, on a rank whose process has taken no profile before
+    (torch.profiler loses device events more often as a process takes many
+    profiles: an empty profile in phase 9.3 of a whole run, and three in a
+    row for the 4-rank shard at the end of one): K2's and K4's sharded forms
+    at the 2- and 4-rank shard shapes in float32 (K4's cross-rank sum the
+    rank's own), beside their plain versions on the same shard and, for K2,
+    ``F.grid_sample``; device ms a call and the bound. Returns one row a form
+    and shape."""
+    from qingdai_tpu_torch import constants as const
+    from qingdai_tpu_torch.grid import make_grid
+    from qingdai_tpu_torch.kernels.advect_bilinear import advect_bilinear_sharded_cuda
+    from qingdai_tpu_torch.kernels.ocean_substeps import halo, ocean_substep_sharded_cuda
+    from qingdai_tpu_torch.ocean import ocean_substeps_plain
+    from qingdai_tpu_torch.ops import advect
+
+    dtype, f4 = torch.float32, 4
+    r = np.random.default_rng(10)
+    g = make_grid(H, W, device=dev, dtype=dtype)
+    F = on(dev, 280.0 + 20.0 * r.standard_normal((2, H, W)), dtype)
+    u = on(dev, np.clip(30.0 * r.standard_normal((H, W)), -200, 200), dtype)
+    v = on(dev, np.clip(20.0 * r.standard_normal((H, W)), -200, 200), dtype)
+    mom, st, forc, geo, params = k4_operands(dev, dtype, N_SPECIES, 1, 1, 0.0)
+    hc = halo(params["k4_nsub"])[1]
+    n_st = st.shape[0]
+    rows = []
+    for n in PAR_RANKS:
+        w = W // n
+        lon0 = (n // 2) * w            # an inner rank: neither seam
+        us, vs, cs = (x[:, lon0:lon0 + w].contiguous() for x in (u, v, g.coslat_cap_tiny))
+        args = (300.0, const.PLANET_RADIUS, g.dlat_rad, g.dlon_rad, cs)
+        k2 = lambda: advect_bilinear_sharded_cuda(F, us, vs, *args, lon0)
+        k2_plain = lambda: advect.advect_semilag_multi_ref(F, us, vs, *args, lon0)
+        dj, di = advect.departure_indices((H, w), us, vs, *args, dtype, lon0)
+        lib = grid_sample_call(F, dj, di)
+        if not torch.equal(k2(), k2_plain()):
+            raise AssertionError(f"10.1: K2's sharded form at {n} ranks differs from its plain "
+                                 "version")
+        pads = [wrap_cols(x, lon0, w, hc) for x in (mom, forc, geo)]
+        own = [x[..., lon0:lon0 + w].contiguous() for x in (mom, st, forc, geo)]
+        k4 = lambda: ocean_substep_sharded_cuda(pads[0], st, pads[1], pads[2], pad=hc,
+                                                lon0=lon0, reduce_sums=lambda s: s, **params)
+        k4_plain = lambda: ocean_substeps_plain(*own, **params)
+        p1 = device_ms(k2_plain, what=f"K2 sharded plain {n}")
+        t_k2 = statistics.median([device_ms(k2, what=f"K2 sharded {n}") for _ in range(2)])
+        p2 = device_ms(k2_plain, what=f"K2 sharded plain {n}")
+        t_lib = device_ms(lib, what=f"grid_sample {n}")
+        q1 = device_ms(k4_plain, what=f"K4 sharded plain {n}")
+        t_k4 = statistics.median([device_ms(k4, what=f"K4 sharded {n}") for _ in range(2)])
+        q2 = device_ms(k4_plain, what=f"K4 sharded plain {n}")
+        cells = H * w
+        # the stack's cells that the departure points' corners reach, each
+        # once; the winds, the cos map and the output
+        b2 = bound((2 * reached_cells(dj, di, H, W) + 3 * cells + 2 * cells) * f4,
+                   (19 + 2 * 7) * cells, rate)
+        # st's owned and pad columns: at ocean speeds K4's departure points
+        # lie within a column of their cells (its cos cap is 0.5), so its
+        # gather reads no further
+        b4 = bound(((3 + 3 + 12 + n_st) * H * (w + 2 * hc) + (3 + n_st) * cells) * f4,
+                   (60 + 3 * 70 + 7 * n_st + 60) * cells, rate)
+        rows += [("advect_bilinear_sharded", n, w, t_k2, statistics.median([p1, p2]), t_lib, b2),
+                 ("ocean_substeps_sharded", n, w, t_k4, statistics.median([q1, q2]), None, b4)]
+    rows.append(("empty profiles", PROFILE_LOG["taken"], len(PROFILE_LOG["empty"])))
+    return rows
+
+
+def phase10_times(rows, label, rec, errs):
+    """10.1's time lines, and the sharded forms' records from the 2-rank
+    shard (``sharded_times``' rows)."""
+    *rows, (_, taken, empty) = rows
+    for name, n, w, t, plain, lib_ms, bd in rows:
+        print(f"time {name} at {n} ranks [{H}, {w}] f32: {t:.5f} device ms a call "
+              f"(plain {plain:.5f}" + (f", F.grid_sample {lib_ms:.5f}" if lib_ms else "")
+              + f"); bound {bd['bound_ms']:.5f} ms by {bd['bound_by']} [{label}]", flush=True)
+        if n == PAR_RANKS[0]:
+            rec[name] = {"max_abs_err": errs[name], "ms": t, "plain_ms": plain,
+                         "bound_ms": bd["bound_ms"], "bound_by": bd["bound_by"],
+                         "library_ms": lib_ms}
+    print(f"10.1 times in rank 0 of the 2-rank spawn: {empty} of {taken} profiles held no "
+          f"device event (each taken again)")
+
+
+def phase10_ops(n, got, whole, errs, label):
+    """10.1: every sharded op of ``n`` ranks (``got``, by dtype) against the
+    whole grid's kernel call (``whole``), and K2's and K4's sharded forms
+    against their plain versions; the largest of those into ``errs``."""
+    w = W // n
+    for name, ops in got.items():
+        if ops["padded_operands"] != 0:
+            raise AssertionError(f"10.1 {n} ranks {name}: {float(ops['padded_operands']):g} "
+                                 "rank(s) made a static operand from the padded maps unlike "
+                                 "the exchanged one")
+        worst = {}
+        for k, ref in whole[name].items():
+            g = ops[k]
+            if k.startswith("pad_"):
+                p = PAR_PAD
+                ref = np.concatenate([ref[:, i * w:i * w + w + 2 * p] for i in range(n)], 1)
+            if k in PAR_EXACT:
+                if not np.array_equal(ref, g, equal_nan=True):
+                    raise AssertionError(f"10.1 {n} ranks {name}: {k} differs from the whole "
+                                         f"grid's (max|diff| {np.abs(ref - g).max()})")
+                continue
+            tol = PAR_MEAN_TOL[name] if k.startswith("area_mean") else PAR_TOL[name]
+            for i in range(ref.shape[0] if ref.ndim == 3 else 1):
+                a, b = (ref[i], g[i]) if ref.ndim == 3 else (ref, g)
+                e = float(np.abs(a - b).max()) / max(float(np.abs(a).max()), 1e-30)
+                worst[k] = max(worst.get(k, 0.0), e)
+                if not e <= tol:
+                    raise AssertionError(f"10.1 {n} ranks {name}: {k} plane {i} differs by "
+                                         f"{e:.3e} of its max (bound {tol:g})")
+        e2 = float(np.abs(ops["advect"] - ops["advect_plain"]).max())
+        e4 = max(float(np.abs(ops[f"k4_{p}_{s}"] - ops[f"k4_{p}_{s}_plain"]).max())
+                 / max(float(np.abs(ops[f"k4_{p}_{s}_plain"]).max()), 1e-30)
+                 for p in ("mom", "st") for s in (1, 2))
+        if not e2 <= PAR_TOL[name] * float(np.abs(ops["advect_plain"]).max()):
+            raise AssertionError(f"10.1 {n} ranks {name}: K2 sharded against plain {e2}")
+        if not e4 <= PAR_TOL[name]:
+            raise AssertionError(f"10.1 {n} ranks {name}: K4 sharded against plain {e4}")
+        errs["advect_bilinear_sharded"] = max(errs["advect_bilinear_sharded"], e2)
+        errs["ocean_substeps_sharded"] = max(
+            errs["ocean_substeps_sharded"],
+            max(float(np.abs(ops[f"k4_{p}_1"] - ops[f"k4_{p}_1_plain"]).max())
+                for p in ("mom", "st")))
+        print(f"10.1 {n} ranks {H}x{W} {name}: halo ops, K1 (median on the gathered field), "
+              f"K2 (sharded form), K3 (padded) and the Gaussian, Shapiro, spectral, gradient, "
+              f"divergence and vorticity ops bit-equal to the whole grid's ({len(PAR_EXACT)} "
+              f"results); K4 and the ocean step (relative to each plane's max): "
+              + ", ".join(f"{k} {e:.2e}" for k, e in worst.items())
+              + f"; K2 sharded against its plain version max|err| {e2:.3e}, K4 sharded against "
+              f"its plain version {e4:.2e} of max [{label}]", flush=True)
+
+
+def phase10_day(n, res, label):
+    """10.2's checks and lines of ``n`` ranks' results."""
+    from qingdai_tpu_torch.physics.orbital import T_PLANET
+
+    want = path_counts(STEPS_PER_DAY, "_sharded")
+    for rank, r_ in enumerate(res):
+        if r_["day"]["counts"] != want:
+            raise AssertionError(f"10.2 {n} ranks: rank {rank} launched {r_['day']['counts']} "
+                                 f"!= {want}")
+    r0 = res[0]["day"]
+    ms = r0["wall_s"] / STEPS_PER_DAY * 1e3
+    per = {k: v / STEPS_PER_DAY for k, v in r0["stats"].items()}
+    syh = 3600.0 / (ms / 1000.0) * 300.0 / T_PLANET
+    print(f"10.2 flagship {H}x{W} f32 sharded over {n} ranks ({r0['width']} columns a rank, "
+          f"gloo on one card): a day of {STEPS_PER_DAY} steps after {PAR_WARM}, diags every "
+          f"{PAR_DIAG_EVERY}; launches a rank-day {r0['counts']} (K1 3, K2 sharded 3, K3 1, "
+          f"K4 sharded 2 a rank-step: its tile pass and its finish); Ts_mean {r0['ts']:.3f} K, "
+          f"T_s in "
+          f"[{r0['ts_field'][0]:.2f}, {r0['ts_field'][1]:.2f}] K, TOA_net {r0['toa']:.3f} "
+          f"W/m2, u_max {r0['umax']:.2f} m/s, last event routed {r0['routed']:.4e} kg; all "
+          f"leaves and diags finite", flush=True)
+    print(f"10.2 {n} ranks sharing one card: {ms:.3f} ms/step ({syh:.3f} sim-years/hour, not "
+          f"a scaling number); a rank-step: {per['collectives']:.2f} collectives, halo "
+          f"{per['halo_bytes'] / 1e3:.1f} kB, gathered {per['gather_bytes'] / 1e3:.1f} kB, "
+          f"all-reduced {per['reduce_bytes']:.0f} B received; build {r0['build_s']:.1f} s "
+          f"[{label}]", flush=True)
+    return r0["counts"]
+
+
+def phase10_members(dev, ens, label):
+    """10.4: the gathered member-sharded ensemble against the unsharded
+    B = 8 run, and one LETKF analysis of each."""
+    from qingdai_tpu_torch import assim as A
+    from qingdai_tpu_torch import constants as const
+    from qingdai_tpu_torch import convert, entry
+    from qingdai_tpu_torch import ensemble as E
+
+    want = path_counts(PAR_ENS_STEPS, "_batched")
+    if any(r_["counts"] != want for r_ in ens):
+        raise AssertionError(f"10.4: launches {[r_['counts'] for r_ in ens]} != {want}")
+    mdl, _ = entry.build_world(H, W, extra_env=MAIN)
+    ens_all, gens = E.init_ensemble(mdl, PAR_ENS_B, h_amp=20.0)
+    ens_all, _ = E.make_ensemble_chunk_fn(mdl, PAR_ENS_STEPS)(ens_all, gens)
+    ref, got = convert.world_to_numpy(ens_all), ens[0]["state"]
+    diffs = {}
+    for k in ref:
+        a, b = np.asarray(ref[k]), np.asarray(got[k])
+        if a.dtype.kind == "f":
+            fin = np.isfinite(a)
+            diffs[k] = float(np.abs(a[fin] - b[fin]).max(initial=0.0))
+    worst = max(diffs, key=diffs.get)
+    same = all(np.array_equal(np.asarray(ref[k]), np.asarray(got[k]), equal_nan=True)
+               for k in ref)
+    obs_g = torch.Generator(device=dev).manual_seed(0)
+    cells = A.draw_obs_network(obs_g, mdl, ASSIM_OBS)
+    y = A.synthetic_obs(obs_g, E.member_state(ens_all, 0), cells, "T_s", 0.5)
+    lat, lon = mdl.grid.lat_mesh.reshape(-1), mdl.grid.lon_mesh.reshape(-1)
+    fidx = torch.zeros(ASSIM_OBS, dtype=torch.long, device=dev)
+    an = [A.letkf_analysis(X.to(dev).reshape(PAR_ENS_B, len(ASSIM_FIELDS), -1), y, cells,
+                           fidx, lat, lon, obs_err=0.5, loc_radius_km=2000.0, inflation=1.04,
+                           planet_radius_m=const.PLANET_RADIUS, rtps=0.6)
+          for X in (A.gather_fields(ens_all, ASSIM_FIELDS), ens[0]["X"])]
+    an_diff = float((an[0] - an[1]).abs().max())
+    print(f"10.4 member mesh: B={PAR_ENS_B} flagship members {H}x{W} f32 over 2 ranks "
+          f"({PAR_ENS_B // 2} a rank, launches {ens[0]['counts']}) against the unsharded "
+          f"B={PAR_ENS_B} run, {PAR_ENS_STEPS} steps: "
+          + ("bit-equal in every leaf" if same else f"max|diff| {diffs[worst]:.3e} at {worst}")
+          + f"; one LETKF analysis of the gathered ensemble ({ASSIM_OBS} T_s obs) against the "
+          f"unsharded one: max|diff| {an_diff:.3e}; the ranks' part {ens[0]['seconds']:.1f} s "
+          f"[{label}]", flush=True)
+    if same and an_diff != 0.0:
+        raise AssertionError("10.4: equal ensembles gave different analyses")
+
+
+def phase10_parallel(dev, label, rate, rec):
+    """Phase 10 (module docstring): 10.1 the sharded ops and forms, 10.2 the
+    flagship planet sharded for a day, 10.3 the dry run, 10.4 the member
+    mesh. Returns the sharded forms' launch counts from 10.2's 2-rank day."""
+    from qingdai_tpu_torch.parallel.mesh import spawn_ranks
+
+    started = time.perf_counter()
+    inputs = par_op_inputs(H, W, seed=10)
+    whole = {name: par_whole_ops(inputs, "cuda", getattr(torch, name)) for name in PAR_TOL}
+    errs = {"advect_bilinear_sharded": 0.0, "ocean_substeps_sharded": 0.0}
+    counts_2 = None
+    for n in PAR_RANKS:
+        t0 = time.perf_counter()
+        # the 2-rank spawn also times the sharded forms (on rank 0)
+        ens_b, segs, t_rate = (PAR_ENS_B, 0, rate) if n == 2 else (0, PAR_DRYRUN_SEGS, 0.0)
+        res = spawn_ranks(par_rank, n, "gloo", "cuda",
+                          (inputs, STEPS_PER_DAY, ens_b, segs, t_rate))
+        print(f"phase 10: {n} ranks in {time.perf_counter() - t0:.1f} s (spawn included)")
+        phase10_ops(n, res[0]["ops"], whole, errs, label)
+        counts = phase10_day(n, res, label)
+        counts_2 = counts_2 or counts
+        if ens_b:
+            phase10_members(dev, [r["ens"] for r in res], label)
+            times = res[0]["times"]
+        if segs:
+            dr = res[0]["dryrun"]
+            print(f"10.3 dry run {dr['grid']} f64 over {dr['n_ranks']} ranks (gloo, one card), "
+                  f"{dr['n_segs']} resynced half-day segments of {dr['seg_len_steps']} steps "
+                  f"at dt 7200 s: "
+                  + ", ".join(f"seg{s['seg']} {s['diff']:.3e} at {s['worst']} (ctrl "
+                              f"{s['ctrl']:.3e}, bound {s['bound']:.3e})"
+                              for s in dr["segments"])
+                  + f"; routed {dr['routed_mass_kg']:.4e} kg; Ts [{dr['ts_min_K']:.1f}, "
+                  f"{dr['ts_max_K']:.1f}] K; {dr['seconds']:.1f} s [{label}]", flush=True)
+    phase10_times(times, label, rec, errs)
+    print(f"phase 10: {time.perf_counter() - started:.1f} s")
+    return {name: counts_2[name] for name, *_ in SHARDED_KERNELS}
+
+
 def main(argv=None):
     argv = sys.argv[1:] if argv is None else argv
-    # ``--phase 9``: the kernels' build and phase 9 alone, no record line
+    # ``--phase 9`` or ``--phase 10``: the kernels' build and that phase
+    # alone, no record line
     only = argv[1] if len(argv) == 2 and argv[0] == "--phase" else None
-    if argv and only != "9":
-        print(f"chip_smoke: unknown arguments {argv} (none, or --phase 9)", file=sys.stderr)
+    if argv and only not in ("9", "10"):
+        print(f"chip_smoke: unknown arguments {argv} (none, --phase 9 or --phase 10)",
+              file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2436,6 +3059,11 @@ def main(argv=None):
         phase9_spinup(label)
         print(f"chip_smoke: phase 9 alone in {time.perf_counter() - started:.1f} s; card: {label}")
         return 0
+    if only == "10":
+        phase10_parallel(dev, label, rate, {})
+        print(f"chip_smoke: phase 10 alone in {time.perf_counter() - started:.1f} s; card: "
+              f"{label}")
+        return 0
 
     rec = phase3_kernels(dev, label, rate)
     st, counts = phase4_paths(label)
@@ -2450,12 +3078,18 @@ def main(argv=None):
     _, build_ms = phase8_analysis(label)
     phase8_osse(label, build_ms)
     phase9_spinup(label)
+    counts.update(phase10_parallel(dev, label, rate, rec))
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels_line = [{"name": name + form, "route": "cuda", "source": src, "replaces": rep,
                      "launches": counts[name + form], **{k: rec[name + form][k] for k in keys}}
                     for form in ("", "_batched") for name, src, rep, _ in KERNELS]
-    print(f"chip_smoke: phases 1-9 in {time.perf_counter() - started:.1f} s")
+    kernels_line += [{"name": name, "route": "cuda", "source": src, "replaces": rep,
+                      "launches": counts[name], **{k: rec[name][k] for k in keys}}
+                     for name, src, rep, _ in SHARDED_KERNELS]
+    print(f"torch.profiler: {len(PROFILE_LOG['empty'])} of {PROFILE_LOG['taken']} profiles held "
+          f"no device event; timed with CUDA events instead: {PROFILE_LOG['events']}")
+    print(f"chip_smoke: phases 1-10 in {time.perf_counter() - started:.1f} s")
     print(f"card: {label}")
     print(json.dumps({"kernels": kernels_line}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

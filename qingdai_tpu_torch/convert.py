@@ -26,6 +26,8 @@ _PORT_CLASSES = {cls.__name__: cls for cls in (
 # host numbers of the port's clocks
 _HOST_INT = ("step_idx",)
 _HOST_FLOAT = ("accum_t_day", "phyto_accum", "t_accum")
+# a port grid's shard fields (``parallel.mesh.shard_grid``)
+_GRID_SHARD = ("lon0", "width", "mesh", "padded")
 
 
 def _leaf(x, device, dtype):
@@ -57,6 +59,14 @@ def world_from_numpy(jax_obj, device="cuda", dtype=torch.float64):
         raise TypeError(f"no port counterpart for {type(jax_obj).__name__}")
     kw = {}
     for f in dataclasses.fields(cls):
+        if cls is grid_mod.Grid and f.name in _GRID_SHARD:
+            # a port grid keeps its shard; a JAX grid has no lon0, width or
+            # padded maps, and its mesh is not the port's
+            if isinstance(jax_obj, grid_mod.Grid):
+                x = getattr(jax_obj, f.name)
+                kw[f.name] = (world_from_numpy(x, device, dtype) if f.name == "padded"
+                              and x is not None else x)
+            continue
         x = getattr(jax_obj, f.name)
         if x is None or type(x).__name__ in _PORT_CLASSES:
             kw[f.name] = None if x is None else world_from_numpy(x, device, dtype)

@@ -39,6 +39,15 @@
 // the specialised M = 1 and M = 2 paths issued before the sums, loads
 // through the read-only path, and 32 x 8 blocks so that a warp's corners
 // share cache lines under smooth winds.
+//
+// The sharded form (a rank of the longitude mesh, parallel/mesh.py) reads
+// the whole stack [M, H, Wf], gathered from every rank, and the rank's own
+// winds and cos map [H, W], and writes the rank's columns [M, H, W]. Its
+// output column i is global column lon0 + i: the departure point is
+// (T)(lon0 + i) - dx and the corners wrap modulo Wf, the same arithmetic
+// per cell as the whole-grid call (Wf = W, lon0 = 0), so the columns are
+// that call's bit for bit. A halo cannot replace the gather: on the pole
+// rows the 1e-6 cos cap moves a departure point thousands of cells.
 
 #include <cuda_runtime.h>
 
@@ -81,12 +90,12 @@ __global__ void __launch_bounds__(kBX * kBY)
 advect_bilinear_kernel(const T* __restrict__ f, const T* __restrict__ u,
                        const T* __restrict__ v, const T* __restrict__ cosl,
                        T* __restrict__ out, T* __restrict__ dep_out, int M, int H, int W,
-                       long long f_bs, long long u_bs, long long v_bs, long long c_bs,
-                       T dt, T a, T inv_a, T inv_dlat, T inv_dlon) {
+                       int Wf, int lon0, long long f_bs, long long u_bs, long long v_bs,
+                       long long c_bs, T dt, T a, T inv_a, T inv_dlat, T inv_dlon) {
   const int i = blockIdx.x * kBX + threadIdx.x;
   const int j = blockIdx.y * kBY + threadIdx.y;
   if (i >= W || j >= H) return;
-  const int HW = H * W;
+  const int HW = H * W, HWf = H * Wf;
   if (kMembers) {
     const long long b = blockIdx.z;
     f += b * f_bs;
@@ -101,27 +110,27 @@ advect_bilinear_kernel(const T* __restrict__ f, const T* __restrict__ u,
   const T dphi = (ld(v + p) * dt) * inv_a;
   const T dx = dlam * inv_dlon;
   const T dy = dphi * inv_dlat;
-  const T dj = T(j) - dy, di = T(i) - dx;
+  const T dj = T(j) - dy, di = T(i + lon0) - dx;
   if (dep_out != nullptr) {
     dep_out[p] = dj;
     dep_out[HW + p] = di;
   }
   const T j0f = floor(dj), i0f = floor(di);
   const T fj = dj - j0f, fi = di - i0f;
-  const int j0 = wrap_index(j0f, H), i0 = wrap_index(i0f, W);
+  const int j0 = wrap_index(j0f, H), i0 = wrap_index(i0f, Wf);
   const int j1 = (j0 + 1 == H) ? 0 : j0 + 1;
-  const int i1 = (i0 + 1 == W) ? 0 : i0 + 1;
+  const int i1 = (i0 + 1 == Wf) ? 0 : i0 + 1;
   const T w00 = (T(1) - fj) * (T(1) - fi);
   const T w01 = (T(1) - fj) * fi;
   const T w10 = fj * (T(1) - fi);
   const T w11 = fj * fi;
-  const int c00 = j0 * W + i0, c01 = j0 * W + i1;
-  const int c10 = j1 * W + i0, c11 = j1 * W + i1;
+  const int c00 = j0 * Wf + i0, c01 = j0 * Wf + i1;
+  const int c10 = j1 * Wf + i0, c11 = j1 * Wf + i1;
   if (MS == 1) {
     const T a00 = ld(f + c00), a01 = ld(f + c01), a10 = ld(f + c10), a11 = ld(f + c11);
     out[p] = a00 * w00 + a01 * w01 + a10 * w10 + a11 * w11;
   } else if (MS == 2) {
-    const T* g = f + HW;
+    const T* g = f + HWf;
     const T a00 = ld(f + c00), a01 = ld(f + c01), a10 = ld(f + c10), a11 = ld(f + c11);
     const T b00 = ld(g + c00), b01 = ld(g + c01), b10 = ld(g + c10), b11 = ld(g + c11);
     out[p] = a00 * w00 + a01 * w01 + a10 * w10 + a11 * w11;
@@ -129,7 +138,7 @@ advect_bilinear_kernel(const T* __restrict__ f, const T* __restrict__ u,
   } else {
 #pragma unroll 2
     for (int m = 0; m < M; ++m) {
-      const T* fm = f + (size_t)m * HW;
+      const T* fm = f + (size_t)m * HWf;
       out[(size_t)m * HW + p] = ld(fm + c00) * w00 + ld(fm + c01) * w01 +
                                 ld(fm + c10) * w10 + ld(fm + c11) * w11;
     }
@@ -139,27 +148,31 @@ advect_bilinear_kernel(const T* __restrict__ f, const T* __restrict__ u,
 // one launch of the instantiation for M and kMembers
 template <typename T, bool kMembers>
 void launch_kernel(dim3 grid, cudaStream_t s, const T* f, const T* u, const T* v, const T* c,
-                   T* out, T* dep, int M, int H, int W, long long f_bs, long long u_bs,
-                   long long v_bs, long long c_bs, T dt, T a, T inv_a, T inv_dlat,
-                   T inv_dlon) {
+                   T* out, T* dep, int M, int H, int W, int Wf, int lon0, long long f_bs,
+                   long long u_bs, long long v_bs, long long c_bs, T dt, T a, T inv_a,
+                   T inv_dlat, T inv_dlon) {
   const dim3 block(kBX, kBY);
   if (M == 1)
     advect_bilinear_kernel<T, 1, kMembers><<<grid, block, 0, s>>>(
-        f, u, v, c, out, dep, M, H, W, f_bs, u_bs, v_bs, c_bs, dt, a, inv_a, inv_dlat, inv_dlon);
+        f, u, v, c, out, dep, M, H, W, Wf, lon0, f_bs, u_bs, v_bs, c_bs, dt, a, inv_a, inv_dlat,
+        inv_dlon);
   else if (M == 2)
     advect_bilinear_kernel<T, 2, kMembers><<<grid, block, 0, s>>>(
-        f, u, v, c, out, dep, M, H, W, f_bs, u_bs, v_bs, c_bs, dt, a, inv_a, inv_dlat, inv_dlon);
+        f, u, v, c, out, dep, M, H, W, Wf, lon0, f_bs, u_bs, v_bs, c_bs, dt, a, inv_a, inv_dlat,
+        inv_dlon);
   else
     advect_bilinear_kernel<T, 0, kMembers><<<grid, block, 0, s>>>(
-        f, u, v, c, out, dep, M, H, W, f_bs, u_bs, v_bs, c_bs, dt, a, inv_a, inv_dlat, inv_dlon);
+        f, u, v, c, out, dep, M, H, W, Wf, lon0, f_bs, u_bs, v_bs, c_bs, dt, a, inv_a, inv_dlat,
+        inv_dlon);
 }
 
 template <typename T>
 int launch(const void* f, const void* u, const void* v, const void* cosl, void* out,
            void* dep_out, int n_members, long long f_bs, long long u_bs, long long v_bs,
-           long long c_bs, int M, int H, int W, double dt, double a, double dlat,
-           double dlon, void* stream) {
+           long long c_bs, int M, int H, int W, int Wf, int lon0, double dt, double a,
+           double dlat, double dlon, void* stream) {
   if (n_members < 1 || n_members > 65535) return (int)cudaErrorInvalidValue;
+  if (Wf < W || lon0 < 0 || lon0 > Wf - W) return (int)cudaErrorInvalidValue;
   // the scalars in T, and the reciprocals PyTorch multiplies by: taken in
   // double, rounded to T
   const T dt_t = (T)dt, a_t = (T)a;
@@ -167,7 +180,7 @@ int launch(const void* f, const void* u, const void* v, const void* cosl, void* 
   const dim3 grid((W + kBX - 1) / kBX, (H + kBY - 1) / kBY, n_members);
   auto run = n_members > 1 ? launch_kernel<T, true> : launch_kernel<T, false>;
   run(grid, (cudaStream_t)stream, (const T*)f, (const T*)u, (const T*)v, (const T*)cosl,
-      (T*)out, (T*)dep_out, M, H, W, f_bs, u_bs, v_bs, c_bs, dt_t, a_t, inv_a, inv_dlat,
+      (T*)out, (T*)dep_out, M, H, W, Wf, lon0, f_bs, u_bs, v_bs, c_bs, dt_t, a_t, inv_a, inv_dlat,
       inv_dlon);
   return (int)cudaGetLastError();
 }
@@ -176,14 +189,16 @@ int launch(const void* f, const void* u, const void* v, const void* cosl, void* 
 
 // n_members members: member b's stack at f + b * f_bs, winds at u + b * u_bs
 // and v + b * v_bs, cos map at cosl + b * c_bs; out is [n_members, M, H, W]
-// and dep_out [n_members, 2, H, W]
+// and dep_out [n_members, 2, H, W]; the stack is [M, H, Wf] and output column
+// i is its column lon0 + i (the whole grid: Wf = W, lon0 = 0)
 #define QD_ADVECT_LAUNCHER(NAME, T)                                                          \
   extern "C" int NAME(const void* f, const void* u, const void* v, const void* cosl,        \
                       void* out, void* dep_out, int n_members, long long f_bs,             \
                       long long u_bs, long long v_bs, long long c_bs, int M, int H, int W, \
-                      double dt, double a, double dlat, double dlon, void* stream) {       \
+                      int Wf, int lon0, double dt, double a, double dlat, double dlon,     \
+                      void* stream) {                                                      \
     return launch<T>(f, u, v, cosl, out, dep_out, n_members, f_bs, u_bs, v_bs, c_bs, M, H,  \
-                     W, dt, a, dlat, dlon, stream);                                         \
+                     W, Wf, lon0, dt, a, dlat, dlon, stream);                               \
   }
 
 QD_ADVECT_LAUNCHER(qd_advect_bilinear_f32, float)

@@ -76,6 +76,24 @@
 // cell's arithmetic is the single launch's, so each member's result is the
 // same bits; a member costs the tile pass's work again, the barrier is
 // shared.
+//
+// The sharded form (a rank of the longitude mesh, parallel/mesh.py). No grid
+// barrier spans processes, so a substep splits at its one grid-wide
+// dependency into two launches with a host all-reduce between them:
+// launch A (ocean_tiles_sharded_kernel) runs the tile pass on the rank's
+// tiles and writes their partial sums of E*w and w; the host adds them in
+// float64 and across ranks; launch B (ocean_finish_sharded_kernel) removes
+// the mean and finishes the rank's cells. Its inputs: mom, forc and geo are
+// the rank's columns [.., H, Wo] padded by `pad` >= the halo of
+// qd_ocean_substeps_halo with the neighbours' columns, so the tile pass reads
+// column pad + c for owned column c with no wrap; st is gathered whole
+// [n_st, H, Wg], because the departure gather reads any column, and owned
+// column c is global column lon0 + c there. The outputs are the rank's
+// columns; uvs holds the scrubbed U, V on the owned columns and one more on
+// each side [2, H, Wo + 2], which the edge tiles compute from their padded
+// neighbourhood, so mean4 in launch B reads no other rank. Every cell's
+// arithmetic is the whole-grid launch's; only the eta mean's order of
+// summation differs.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -128,6 +146,9 @@ struct Args {
   unsigned long long* trace;  // [2, kSlots] or null
   long long mom_bs, st_bs, forc_bs, geo_bs;
   int n_members, n_st, H, W, n_sub, k4_nsub, use_qnet, mean4;
+  // the sharded form: the row pitch of mom, forc and geo (padded) and of st
+  // (gathered), the owned column 0's column in the padded inputs and in st
+  int Wp, Wg, pad, lon0;
   int th, tiles_x, n_tiles, plane;  // tile rows, tiles, shared plane size
   double sub_dt, H_m, r_bot, g, a, dlat, dlon, K_h, adv_alpha, ice_qfac, cap, eta_cap;
 };
@@ -258,19 +279,24 @@ __device__ __forceinline__ Smem<T> carve(unsigned char* smem, int plane) {
 }
 
 // The tile pass of substep s for one tile: everything but the eta mean.
-template <typename T>
+// kSh: the sharded form's tile (padded inputs, gathered st, owned outputs).
+template <typename T, bool kSh>
 __device__ __forceinline__ void tile_pass(const Args<T>& A, const Sub<T>& S, int tile,
                                           const Smem<T>& sm, bool tracing) {
-  const int H = A.H, W = A.W, HW = H * W, k = A.k4_nsub;
+  const int H = A.H, W = A.W, k = A.k4_nsub;
+  // row pitches: of mom, forc and geo (Wi), of st (Wg), of the outputs (W)
+  // and of uvs (Wu); the whole grid's are all W
+  const int Wi = kSh ? A.Wp : W, Wg = kSh ? A.Wg : W, Wu = kSh ? W + 2 : W;
+  const int HWi = H * Wi, HWg = H * Wg, HW = H * W, HWu = H * Wu;
   const T* __restrict__ geo = S.geo;
   const T* __restrict__ ax = S.forc;
-  const T* __restrict__ ay = S.forc + HW;
-  const T* __restrict__ heat = S.forc + 2 * HW;
+  const T* __restrict__ ay = S.forc + HWi;
+  const T* __restrict__ heat = S.forc + 2 * HWi;
   // written by the substep before, in the same launch: not read-only
   const T* usrc = S.src;
-  const T* vsrc = S.src + HW;
-  const T* esrc = S.src + 2 * HW;
-  const T* __restrict__ cos05 = geo + kCos05 * HW;
+  const T* vsrc = S.src + HWi;
+  const T* esrc = S.src + 2 * HWi;
+  const T* __restrict__ cos05 = geo + kCos05 * HWi;
   T* X = sm.X;
   T* G = sm.G;
   T* L = sm.L;
@@ -295,31 +321,45 @@ __device__ __forceinline__ void tile_pass(const Args<T>& A, const Sub<T>& S, int
   const int r0 = max(0, j0 - hr), nr = min(H, j0 + oh + hr) - r0, nc = ow + 2 * hc;
   const qd::Tile t{H, r0, nr, nc};
   const qd::Rect own{j0 - r0, j0 - r0 + oh, hc, hc + ow};
-  // this thread's global column and its neighbours
-  const int i = floor_mod((long long)(i0 - hc + (int)threadIdx.x), W);
-  const int ip = (i + 1 == W) ? 0 : i + 1, im = (i == 0) ? W - 1 : i - 1;
+  // this thread's column: c among the owned ones; i and its neighbours in
+  // the inputs (wrapped on the whole grid, padded on a shard), ig in st
+  // (the global column), io in the outputs
+  const int c = i0 - hc + (int)threadIdx.x;
+  int i, ip, im, ig;
+  if (kSh) {
+    i = A.pad + c;
+    ip = i + 1;
+    im = i - 1;
+    ig = floor_mod((long long)A.lon0 + c, Wg);
+  } else {
+    i = floor_mod((long long)c, W);
+    ip = (i + 1 == W) ? 0 : i + 1;
+    im = (i == 0) ? W - 1 : i - 1;
+    ig = i;
+  }
+  const int io = kSh ? c : i;
 
   // ---- 1: momentum on the whole neighbourhood; the cos cap into C ----
   qd::for_rect(qd::Rect{0, nr, 0, nc}, [&](int lr, int lc) {
-    const int j = r0 + lr, p = j * W + i, q = lr * nc + lc;
+    const int j = r0 + lr, p = j * Wi + i, q = lr * nc + lc;
     const int jp = (j + 1 == H) ? 0 : j + 1, jm = (j == 0) ? H - 1 : j - 1;
-    const T c = cos05[p];
-    const T deta_dlam = (esrc[j * W + ip] - esrc[j * W + im]) * inv_two_dlon;
-    const T deta_dphi = (esrc[jp * W + i] - esrc[jm * W + i]) * inv_two_dlat;
-    const T gx = deta_dlam / (a * c);
+    const T cs = cos05[p];
+    const T deta_dlam = (esrc[j * Wi + ip] - esrc[j * Wi + im]) * inv_two_dlon;
+    const T deta_dphi = (esrc[jp * Wi + i] - esrc[jm * Wi + i]) * inv_two_dlat;
+    const T gx = deta_dlam / (a * cs);
     const T gy = deta_dphi * inv_a;
-    const T f = geo[kF * HW + p];
+    const T f = geo[kF * HWi + p];
     T uo = usrc[p], vo = vsrc[p];
     const T du = f * vo - g * gx + ax[p] - r_bot * uo;
     const T dv = -f * uo - g * gy + ay[p] - r_bot * vo;
-    const bool land = geo[kLand * HW + p] > T(0.5);
+    const bool land = geo[kLand * HWi + p] > T(0.5);
     uo = land ? T(0) : uo + sub_dt * du;
     vo = land ? T(0) : vo + sub_dt * dv;
-    const T sponge = sub_dt * geo[kRExtra * HW + p];
+    const T sponge = sub_dt * geo[kRExtra * HWi + p];
     X[q] = uo - sponge * uo;
     X[A.plane + q] = vo - sponge * vo;
     X[2 * A.plane + q] = esrc[p];
-    C[q] = c;
+    C[q] = cs;
   });
   __syncthreads();
   if (tracing) stamp(A.trace, 1);
@@ -328,7 +368,7 @@ __device__ __forceinline__ void tile_pass(const Args<T>& A, const Sub<T>& S, int
   for (int n = 0; n < k; ++n) {
     const int left = k - 1 - n;  // del^4 substeps still to come
     qd::tile_del4<3>(X, G, L, A.plane, C, t, qd::grow(own, nbhd_rows(left), nbhd_cols(left), nr),
-                     [&](int m, int lr) { return geo[(kK4U + m) * HW + (r0 + lr) * W + i]; },
+                     [&](int m, int lr) { return geo[(kK4U + m) * HWi + (r0 + lr) * Wi + i]; },
                      k4_dt, inv);
   }
   if (tracing) stamp(A.trace, 2);
@@ -340,23 +380,23 @@ __device__ __forceinline__ void tile_pass(const Args<T>& A, const Sub<T>& S, int
   auto departure = [&](int lr, int q) {
     const T uo = X[q], vo = X[A.plane + q];
     const T dep_j = T(r0 + lr) - ((vo * sub_dt) * inv_a) * inv.dlat;
-    const T dep_i = T(i) - ((uo * sub_dt) / (a * C[q])) * inv_dlon;
-    return corners(dep_j, dep_i, H, W);
+    const T dep_i = T(ig) - ((uo * sub_dt) / (a * C[q])) * inv_dlon;
+    return corners(dep_j, dep_i, H, Wg);
   };
   qd::for_rect(qd::grow(own, nbhd_rows(0), nbhd_cols(0), nr), [&](int lr, int lc) {
     const int q = lr * nc + lc;
-    const T blend = one_m_alpha * cur[(r0 + lr) * W + i];
+    const T blend = one_m_alpha * cur[(r0 + lr) * Wg + ig];
     sst_tmp[q] = blend + alpha * gather(cur, departure(lr, q));
   });
   qd::for_rect(own, [&](int lr, int lc) {
-    const int q = lr * nc + lc, p = (r0 + lr) * W + i;
+    const int q = lr * nc + lc, p = (r0 + lr) * W + io;
     const Corners<T> k = departure(lr, q);
     // every load of a group before its stores
     for (int m0 = 1; m0 < A.n_st; m0 += kGroup) {
       T v[kGroup];
 #pragma unroll
       for (int u = 0; u < kGroup; ++u)
-        v[u] = m0 + u < A.n_st ? gather(cur + (m0 + u) * HW, k) : T(0);
+        v[u] = m0 + u < A.n_st ? gather(cur + (m0 + u) * HWg, k) : T(0);
 #pragma unroll
       for (int u = 0; u < kGroup; ++u)
         if (m0 + u < A.n_st) S.nxt[(m0 + u) * HW + p] = v[u];
@@ -378,14 +418,14 @@ __device__ __forceinline__ void tile_pass(const Args<T>& A, const Sub<T>& S, int
   // ---- 7: SST, continuity, the scrubbed U, V and the partial sums ----
   T sum_ew = T(0), sum_w = T(0);
   qd::for_rect(own, [&](int lr, int lc) {
-    const int j = r0 + lr, p = j * W + i, q = lr * nc + lc;
+    const int j = r0 + lr, p = j * Wi + i, po = j * W + io, q = lr * nc + lc;
     // every read of device memory first, then the arithmetic and the writes
     const bool interior = j > 0 && j < H - 1;
-    const T open = geo[kOpen * HW + p], under = geo[kUnder * HW + p], hq = heat[p];
-    const T cos_n = interior ? geo[kCos * HW + p + W] : T(0);
-    const T cos_s = interior ? geo[kCos * HW + p - W] : T(0);
-    const T cos_tiny = geo[kCosTiny * HW + p], land = geo[kLand * HW + p];
-    const T w = geo[kWOcean * HW + p];
+    const T open = geo[kOpen * HWi + p], under = geo[kUnder * HWi + p], hq = heat[p];
+    const T cos_n = interior ? geo[kCos * HWi + p + Wi] : T(0);
+    const T cos_s = interior ? geo[kCos * HWi + p - Wi] : T(0);
+    const T cos_tiny = geo[kCosTiny * HWi + p], land = geo[kLand * HWi + p];
+    const T w = geo[kWOcean * HWi + p];
 
     T sst = sst_tmp[q];
     if (A.K_h > 0.0)
@@ -394,7 +434,7 @@ __device__ __forceinline__ void tile_pass(const Args<T>& A, const Sub<T>& S, int
       if (open > T(0.5)) sst = sst + sub_dt * hq;
       if (A.ice_qfac > 0.0 && under > T(0.5)) sst = sst + dt_qfac * hq;
     }
-    S.nxt[p] = n2n(sst);
+    S.nxt[po] = n2n(sst);
 
     const T* U = X;
     const T* V = X + A.plane;
@@ -404,12 +444,22 @@ __device__ __forceinline__ void tile_pass(const Args<T>& A, const Sub<T>& S, int
     const T div = (du_dlon + dv_dlat) / (a * cos_tiny);
     T e = X[2 * A.plane + q] - dt_H * div;
     if (land > T(0.5)) e = T(0);
-    S.dst[2 * HW + p] = e;
+    S.dst[2 * HW + po] = e;
     sum_ew += e * w;
     sum_w += w;
-    S.uvs[p] = n2n(U[q]);
-    S.uvs[HW + p] = n2n(V[q]);
+    const int pu = kSh ? j * Wu + io + 1 : po;
+    S.uvs[pu] = n2n(U[q]);
+    S.uvs[HWu + pu] = n2n(V[q]);
   });
+  if (kSh) {
+    // the scrubbed U, V one column beyond each edge of the shard, for mean4
+    qd::for_rect(qd::grow(own, 0, 1, nr), [&](int lr, int lc) {
+      if (c != -1 && c != W) return;
+      const int q = lr * nc + lc, pu = (r0 + lr) * Wu + c + 1;
+      S.uvs[pu] = n2n(X[q]);
+      S.uvs[HWu + pu] = n2n(X[A.plane + q]);
+    });
+  }
   block_sum2(sum_ew, sum_w, sm.red);
   if (threadIdx.x == 0 && threadIdx.y == 0) {
     S.partials[tile] = sum_ew;
@@ -431,26 +481,36 @@ __device__ __forceinline__ T eta_mean(const Args<T>& A, const Sub<T>& S, T* red)
 }
 
 // the finish of one cell: eta mean removal, scrub and clamp; mean4 and the
-// speed cap from the scrubbed U, V (cap / x as PyTorch takes it: 1/x, times cap)
-template <typename T>
+// speed cap from the scrubbed U, V (cap / x as PyTorch takes it: 1/x, times
+// cap). kSh: uvs has one more column on each side of the rank's (pitch W + 2)
+template <typename T, bool kSh>
 __device__ __forceinline__ void finish_cell(const Args<T>& A, const Sub<T>& S, int p, T mean) {
-  const int H = A.H, W = A.W, HW = H * W;
+  const int H = A.H, W = A.W, HW = H * W, Wu = kSh ? W + 2 : W;
   const T cap = T(A.cap), eta_cap = T(A.eta_cap);
   const T* U = S.uvs;
-  const T* V = S.uvs + HW;
+  const T* V = S.uvs + H * Wu;
   const T e = n2n(S.dst[2 * HW + p] - mean);
   S.dst[2 * HW + p] = e < -eta_cap ? -eta_cap : (e > eta_cap ? eta_cap : e);
 
-  T uo = U[p], vo = V[p];
+  const int pu = kSh ? p + 2 * (p / W) + 1 : p;
+  T uo = U[pu], vo = V[pu];
   const T speed = sqrt(uo * uo + vo * vo);
   T scl;
   if (A.mean4) {
     if (speed > cap) {
       const int j = p / W, i = p - j * W;
       const int jp = (j + 1 == H) ? 0 : j + 1, jm = (j == 0) ? H - 1 : j - 1;
-      const int ip = (i + 1 == W) ? 0 : i + 1, im = (i == 0) ? W - 1 : i - 1;
-      uo = T(0.25) * (U[jp * W + i] + U[jm * W + i] + U[j * W + ip] + U[j * W + im]);
-      vo = T(0.25) * (V[jp * W + i] + V[jm * W + i] + V[j * W + ip] + V[j * W + im]);
+      int ic = i, ip, im;
+      if (kSh) {
+        ic = i + 1;
+        ip = ic + 1;
+        im = ic - 1;
+      } else {
+        ip = (i + 1 == W) ? 0 : i + 1;
+        im = (i == 0) ? W - 1 : i - 1;
+      }
+      uo = T(0.25) * (U[jp * Wu + ic] + U[jm * Wu + ic] + U[j * Wu + ip] + U[j * Wu + im]);
+      vo = T(0.25) * (V[jp * Wu + ic] + V[jm * Wu + ic] + V[j * Wu + ip] + V[j * Wu + im]);
     }
     const T speed2 = sqrt(uo * uo + vo * vo);
     scl = speed2 > cap ? (T(1) / (speed2 + T(1e-12))) * cap : T(1);
@@ -487,7 +547,7 @@ __global__ void __launch_bounds__(kMaxBlock) ocean_coop_kernel(Args<T> A) {
       const int b = kMembers ? item / A.n_tiles : 0, tile = item - b * A.n_tiles;
       const bool tracing = tracer && item == traced_tile(A);
       if (tracing) stamp(A.trace, 0);
-      tile_pass(A, substep(A, s, b), tile, sm, tracing);
+      tile_pass<T, false>(A, substep(A, s, b), tile, sm, tracing);
       __syncthreads();
     }
     grid.sync();
@@ -498,7 +558,7 @@ __global__ void __launch_bounds__(kMaxBlock) ocean_coop_kernel(Args<T> A) {
       const Sub<T> S = substep(A, s, b);
       const T mean = eta_mean(A, S, sm.red);
       for (int p = blockIdx.x * nt + thread_rank(); p < HW; p += gridDim.x * nt)
-        finish_cell(A, S, p, mean);
+        finish_cell<T, false>(A, S, p, mean);
     }
     if (A.trace != nullptr) {
       __syncthreads();
@@ -506,6 +566,31 @@ __global__ void __launch_bounds__(kMaxBlock) ocean_coop_kernel(Args<T> A) {
     }
     if (s + 1 < A.n_sub) grid.sync();
   }
+}
+
+// the sharded form's launch A: the tile pass of one substep on the rank's
+// tiles, one tile a block, with their partial sums
+template <typename T>
+__global__ void __launch_bounds__(kMaxBlock) ocean_tiles_sharded_kernel(Args<T> A) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const Smem<T> sm = carve<T>(smem, A.plane);
+  for (int tile = blockIdx.x; tile < A.n_tiles; tile += gridDim.x) {
+    tile_pass<T, true>(A, substep(A, 0, 0), tile, sm, false);
+    __syncthreads();
+  }
+}
+
+// the sharded form's launch B: the finish of the rank's cells with the eta
+// mean from the sums over every rank, sums = [sum of E*w, sum of w] in
+// float64, each rounded to T as the whole grid's sums are in T
+template <typename T>
+__global__ void ocean_finish_sharded_kernel(Args<T> A, const double* __restrict__ sums) {
+  const T ew = T(sums[0]), w = T(sums[1]);
+  const T mean = ew / (w + T(1e-15));
+  const Sub<T> S = substep(A, 0, 0);
+  const int HW = A.H * A.W;
+  for (int p = blockIdx.x * blockDim.x + threadIdx.x; p < HW; p += gridDim.x * blockDim.x)
+    finish_cell<T, true>(A, S, p, mean);
 }
 
 // per-device properties, read once
@@ -642,13 +727,98 @@ int run(const void* mom_in, const void* st_in, const void* forc, const void* geo
   Args<T> A{(const T*)mom_in, (const T*)st_in, (const T*)forc, (const T*)geo, (T*)mom_out,
             (T*)st_out, (T*)mom2, (T*)st2, (T*)uvs, (T*)partials,
             (unsigned long long*)trace, mom_bs, st_bs, forc_bs, geo_bs,
-            n_members, n_st, H, W, n_sub, k4_nsub, use_qnet, mean4,
+            n_members, n_st, H, W, n_sub, k4_nsub, use_qnet, mean4, W, W, 0, 0,
             0, 0, 0, 0,
             sub_dt, H_m, r_bot, g, a, dlat, dlon, K_h, adv_alpha, ice_qfac, cap, eta_cap};
   return launch<T>(A, partial_cap, stream);
 }
 
+// [float, double][device]: the sharded tile kernel's opt-in shared memory set
+size_t g_smem_set_sh[2][kMaxDevices];
+
+template <typename T>
+int launch_tiles_sharded(Args<T> A, int partial_cap, void* stream) {
+  int dev = 0;
+  DeviceProps* P = nullptr;
+  cudaError_t e = device_props(&dev, &P);
+  if (e != cudaSuccess) return (int)e;
+  Plan L;
+  e = plan<T>(A.H, A.W, A.k4_nsub, *P, &L);
+  if (e != cudaSuccess) return (int)e;
+  if (L.n_tiles > partial_cap) return (int)cudaErrorInvalidValue;
+  A.th = L.th;
+  A.tiles_x = L.tiles_x;
+  A.n_tiles = L.n_tiles;
+  A.plane = L.plane;
+  const void* fn = (const void*)ocean_tiles_sharded_kernel<T>;
+  const int ti = sizeof(T) == 4 ? 0 : 1;
+  if (L.bytes > 48 * 1024 && g_smem_set_sh[ti][dev] < L.bytes) {
+    e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L.bytes);
+    if (e != cudaSuccess) return (int)e;
+    g_smem_set_sh[ti][dev] = L.bytes;
+  }
+  ocean_tiles_sharded_kernel<T><<<L.n_tiles, L.block, L.bytes, (cudaStream_t)stream>>>(A);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int tiles_sharded(const void* mom_p, const void* st_g, const void* forc_p, const void* geo_p,
+                  void* mom_out, void* st_out, void* uvs, void* partials, int partial_cap,
+                  int n_st, int H, int W, int Wp, int Wg, int pad, int lon0, int k4_nsub,
+                  double sub_dt, double H_m, double r_bot, double g, double a, double dlat,
+                  double dlon, double K_h, double adv_alpha, int use_qnet, double ice_qfac,
+                  void* stream) {
+  if (pad < nbhd_cols(k4_nsub) + 1 || Wp != W + 2 * pad || lon0 < 0 || lon0 + W > Wg)
+    return (int)cudaErrorInvalidValue;
+  Args<T> A{(const T*)mom_p, (const T*)st_g, (const T*)forc_p, (const T*)geo_p, (T*)mom_out,
+            (T*)st_out, nullptr, nullptr, (T*)uvs, (T*)partials, nullptr, 0, 0, 0, 0,
+            1, n_st, H, W, 1, k4_nsub, use_qnet, 0, Wp, Wg, pad, lon0,
+            0, 0, 0, 0,
+            sub_dt, H_m, r_bot, g, a, dlat, dlon, K_h, adv_alpha, ice_qfac, 0.0, 0.0};
+  return launch_tiles_sharded<T>(A, partial_cap, stream);
+}
+
+template <typename T>
+int finish_sharded(void* mom_out, void* uvs, const void* sums, int H, int W, double cap,
+                   int mean4, double eta_cap, void* stream) {
+  Args<T> A{nullptr, nullptr, nullptr, nullptr, (T*)mom_out, nullptr, nullptr, nullptr,
+            (T*)uvs, nullptr, nullptr, 0, 0, 0, 0,
+            1, 1, H, W, 1, 1, 0, mean4, W, W, 0, 0,
+            0, 0, 0, 0,
+            0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, cap, eta_cap};
+  const int threads = 256, blocks = (H * W + threads - 1) / threads;
+  ocean_finish_sharded_kernel<T><<<blocks, threads, 0, (cudaStream_t)stream>>>(
+      A, (const double*)sums);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
+
+// the sharded form's two launches of one substep (see the header comment):
+// mom_p, forc_p [3, H, Wp] and geo_p [12, H, Wp] padded by `pad` columns
+// (Wp = W + 2 pad), st_g [n_st, H, Wg] whole; mom_out [3, H, W], st_out
+// [n_st, H, W], uvs [2, H, W + 2], partials [2 * n_tiles], n_tiles <=
+// partial_cap (qd_ocean_substeps_tiles of H, W), sums [2] float64
+#define QD_OCEAN_SHARDED_LAUNCHERS(SUFFIX, T)                                                   \
+  extern "C" int qd_ocean_tiles_sharded##SUFFIX(                                               \
+      const void* mom_p, const void* st_g, const void* forc_p, const void* geo_p,              \
+      void* mom_out, void* st_out, void* uvs, void* partials, int partial_cap, int n_st,       \
+      int H, int W, int Wp, int Wg, int pad, int lon0, int k4_nsub, double sub_dt, double H_m, \
+      double r_bot, double g, double a, double dlat, double dlon, double K_h,                  \
+      double adv_alpha, int use_qnet, double ice_qfac, void* stream) {                         \
+    return tiles_sharded<T>(mom_p, st_g, forc_p, geo_p, mom_out, st_out, uvs, partials,        \
+                            partial_cap, n_st, H, W, Wp, Wg, pad, lon0, k4_nsub, sub_dt, H_m,  \
+                            r_bot, g, a, dlat, dlon, K_h, adv_alpha, use_qnet, ice_qfac,       \
+                            stream);                                                           \
+  }                                                                                            \
+  extern "C" int qd_ocean_finish_sharded##SUFFIX(void* mom_out, void* uvs, const void* sums,   \
+                                                 int H, int W, double cap, int mean4,          \
+                                                 double eta_cap, void* stream) {               \
+    return finish_sharded<T>(mom_out, uvs, sums, H, W, cap, mean4, eta_cap, stream);           \
+  }
+
+QD_OCEAN_SHARDED_LAUNCHERS(_f32, float)
+QD_OCEAN_SHARDED_LAUNCHERS(_f64, double)
 
 extern "C" int qd_ocean_substeps_halo(int k4_nsub, int* rows, int* cols) {
   *rows = nbhd_rows(k4_nsub) + 1;

@@ -6,6 +6,11 @@ ice, semi-Lagrangian advection of T_s and q, height relaxation, geostrophic or
 primitive momentum, and the filter stack (σ4 ∇⁴, Shapiro, zonal FFT). The
 filter cadences depend only on the step index, a host int, so they are
 Python ``if``s.
+
+On a rank of the longitude mesh (``grid.mesh``) the audit means and the
+variances add across ranks, the median gathers, K2 takes the gathered
+stack, K3 and Shapiro a halo, the spectral filter gathers, and
+``grad_lonlat`` takes one-sided edges at the global seam only.
 """
 
 from __future__ import annotations
@@ -20,6 +25,7 @@ from .ops.reductions import masked_median_of_positive
 from .ops.stencil import (hyperdiffuse_multi, shapiro_filter, shapiro_filter_multi,
                           spectral_zonal_filter)
 from .physics import energy as en
+from .parallel.halo import gsum, single
 from .physics import humidity as hum
 from .state import AtmosState, EnergyState, StaticFields
 
@@ -37,6 +43,7 @@ def atmos_step(grid: Grid, cfg: SimConfig, static: StaticFields, atmos: AtmosSta
     dcfg, ecfg, hcfg = cfg.dynamics, cfg.energy, cfg.humidity
     a = const.PLANET_RADIUS
     dlat, dlon = grid.dlat_rad, grid.dlon_rad
+    mesh = grid.mesh
 
     u, v, h = atmos.u, atmos.v, atmos.h
     T_s, cloud, q, h_ice = atmos.T_s, atmos.cloud_cover, atmos.q, atmos.h_ice
@@ -44,7 +51,7 @@ def atmos_step(grid: Grid, cfg: SimConfig, static: StaticFields, atmos: AtmosSta
     # QD_ENERGY_AUDIT: area-mean energy injected by each non-conservative move
     audit = ecfg.audit
     aud = {}
-    wm = ((lambda x: torch.sum(x * grid.area_w) / (torch.sum(grid.area_w) + 1e-15))
+    wm = ((lambda x: gsum(x * grid.area_w, mesh) / (gsum(grid.area_w, mesh) + 1e-15))
           if audit else None)
     H_atm_a = dcfg.atm_h if dcfg.atm_h is not None else hcfg.h_mbl
     kappa = max(1e-6, float(hcfg.rho_a)) * max(1.0, float(H_atm_a)) * dcfg.g
@@ -74,7 +81,7 @@ def atmos_step(grid: Grid, cfg: SimConfig, static: StaticFields, atmos: AtmosSta
         if dcfg.pcond_ref is not None:
             P_ref = torch.full((), dcfg.pcond_ref, dtype=T_s.dtype, device=T_s.device)
         else:
-            P_ref = masked_median_of_positive(P_cond, fallback=1e-6)
+            P_ref = masked_median_of_positive(P_cond, fallback=1e-6, mesh=mesh)
         p_term = torch.tanh(torch.where(P_ref > 0, P_cond / P_ref, 0.0))
         cloud_eff = torch.clamp(cloud + dcfg.k_q * rh_excess + dcfg.k_p * p_term, 0.0, 1.0)
     else:
@@ -127,7 +134,7 @@ def atmos_step(grid: Grid, cfg: SimConfig, static: StaticFields, atmos: AtmosSta
     adv_alpha = dcfg.adv_alpha
     cos_tiny = grid.coslat_cap_tiny
     Ts_preadv, q_preadv = T_s, q
-    adv = advect_semilag_multi(torch.stack([T_s, q]), u, v, dt, a, dlat, dlon, cos_tiny)
+    adv = advect_semilag_multi(torch.stack([T_s, q]), u, v, dt, a, dlat, dlon, cos_tiny, mesh)
     T_s = (1.0 - adv_alpha) * T_s + adv_alpha * adv[0]
     q = torch.clamp((1.0 - adv_alpha) * q + adv_alpha * adv[1], 0.0, 0.5)
     if audit:
@@ -178,13 +185,15 @@ def atmos_step(grid: Grid, cfg: SimConfig, static: StaticFields, atmos: AtmosSta
 
     # ---- filters, batched across fields ----
     if dcfg.dyn_diag:
-        var_pre = (torch.var(u, correction=0), torch.var(v, correction=0),
-                   torch.var(h, correction=0))
+        var_pre = (_var(u, mesh), _var(v, mesh), _var(h, mesh))
     if audit:
         h_prefilt, q_prefilt = h, q
     if (dcfg.diff_enable and dcfg.filter_type in ("hyper4", "combo")
             and _every(step_idx, max(1, dcfg.diff_every))):
-        k4_base = dcfg.sigma4 * grid.k4_map_unit / max(1e-12, dt)
+        # on a shard, the static maps over its padded columns where it holds
+        # them, so that K3's padded block exchanges only the fields
+        gs = grid.padded if grid.padded is not None else grid
+        k4_base = dcfg.sigma4 * gs.k4_map_unit / max(1e-12, dt)
         # the σ4 maps are > 0, so only an explicit scalar 0 disables q/cloud
         apply_q = dcfg.diff_q or (dcfg.k4_q is None) or (dcfg.k4_q > 0.0)
         apply_c = dcfg.diff_cloud or (dcfg.k4_cloud is None) or (dcfg.k4_cloud > 0.0)
@@ -201,16 +210,16 @@ def atmos_step(grid: Grid, cfg: SimConfig, static: StaticFields, atmos: AtmosSta
         field_map = {"u": u, "v": v, "h": h, "q": q, "c": cloud}
         stack = torch.stack([field_map[name] for name, _ in rows])
         k4_stack = torch.stack([k for _, k in rows])
-        cos02 = grid.coslat_cap_02
+        cos02 = gs.coslat_cap_02
         # the reference substeps u/v/h k4_nsub times but q/cloud once
         if dcfg.k4_nsub <= 1:
-            stack = hyperdiffuse_multi(stack, k4_stack, dt, 1, dlat, dlon, cos02, a)
+            stack = hyperdiffuse_multi(stack, k4_stack, dt, 1, dlat, dlon, cos02, a, mesh)
         else:
             uvh = hyperdiffuse_multi(stack[:3], k4_stack[:3], dt, dcfg.k4_nsub,
-                                     dlat, dlon, cos02, a)
+                                     dlat, dlon, cos02, a, mesh)
             if stack.shape[0] > 3:
                 qc = hyperdiffuse_multi(stack[3:].contiguous(), k4_stack[3:].contiguous(),
-                                        dt, 1, dlat, dlon, cos02, a)
+                                        dt, 1, dlat, dlon, cos02, a, mesh)
                 uvh = torch.cat([uvh, qc])
             stack = uvh
         for i, (name, _) in enumerate(rows):
@@ -219,22 +228,22 @@ def atmos_step(grid: Grid, cfg: SimConfig, static: StaticFields, atmos: AtmosSta
 
     if (dcfg.filter_type in ("shapiro", "combo", "hyper4")
             and _every(step_idx, dcfg.shapiro_every)):
-        uvh = shapiro_filter_multi(torch.stack([u, v, h]), n=dcfg.shapiro_n)
+        uvh = shapiro_filter_multi(torch.stack([u, v, h]), n=dcfg.shapiro_n, mesh=mesh)
         u, v, h = uvh[0], uvh[1], uvh[2]
         if dcfg.diff_q:
-            q = shapiro_filter(q, n=max(1, dcfg.shapiro_n - 1))
+            q = shapiro_filter(q, n=max(1, dcfg.shapiro_n - 1), mesh=mesh)
         if dcfg.diff_cloud:
-            cloud = shapiro_filter(cloud, n=max(1, dcfg.shapiro_n - 1))
+            cloud = shapiro_filter(cloud, n=max(1, dcfg.shapiro_n - 1), mesh=mesh)
 
     if dcfg.filter_type in ("spectral", "combo") and _every(step_idx, dcfg.spec_every):
-        u, v, h = (spectral_zonal_filter(x, grid.n_lon, dcfg.spec_cutoff, dcfg.spec_damp)
+        u, v, h = (spectral_zonal_filter(x, grid.n_lon, dcfg.spec_cutoff, dcfg.spec_damp, mesh)
                    for x in (u, v, h))
 
     if audit:
         aud["aud_filt"] = wm((kappa * (h - h_prefilt) + hcfg.L_v * M_col * (q - q_prefilt)) / dt)
 
     # cloud advection + 2-day dissipation
-    cloud = advect_semilag_multi(cloud[None], u, v, dt, a, dlat, dlon, cos_tiny)[0]
+    cloud = advect_semilag_multi(cloud[None], u, v, dt, a, dlat, dlon, cos_tiny, mesh)[0]
     cloud = cloud * (1.0 - dt / (2.0 * 24 * 3600))
 
     # global mild diffusion and NaN scrub
@@ -257,7 +266,17 @@ def atmos_step(grid: Grid, cfg: SimConfig, static: StaticFields, atmos: AtmosSta
     aux.update(aud)
     if dcfg.dyn_diag:
         aux["dyn_var_u_pre"], aux["dyn_var_v_pre"], aux["dyn_var_h_pre"] = var_pre
-        aux["dyn_var_u_post"] = torch.var(u, correction=0)
-        aux["dyn_var_v_post"] = torch.var(v, correction=0)
-        aux["dyn_var_h_post"] = torch.var(h, correction=0)
+        aux["dyn_var_u_post"] = _var(u, mesh)
+        aux["dyn_var_v_post"] = _var(v, mesh)
+        aux["dyn_var_h_post"] = _var(h, mesh)
     return new_atmos, aux
+
+
+def _var(x: torch.Tensor, mesh) -> torch.Tensor:
+    """The population variance of the whole field; on a mesh from the sums
+    of x and of its squared deviations across ranks."""
+    if single(mesh):
+        return torch.var(x, correction=0)
+    n = x.numel() * mesh.n
+    mean = gsum(x, mesh) / n
+    return gsum((x - mean) ** 2, mesh) / n

@@ -14,6 +14,8 @@ import os
 import numpy as np
 import torch
 
+from ..parallel.halo import all_gather_lon, single
+
 
 def _as_tensor(x, like=None):
     """x as a tensor (on ``like``'s device where x is not a tensor yet)."""
@@ -92,12 +94,19 @@ def save_community_npz(L_s, land_mask, t_days, outdir):
 
 
 def compute_and_plot(lat, lon, lat_mesh, eco_state, land_mask, t_days,
-                     base_output_dir, plot=True) -> dict:
+                     base_output_dir, plot=True, mesh=None) -> dict:
     """Entry point mirroring diversity.compute_and_plot (diversity.py:188-216):
     the metrics on ``eco_state``'s device, then the panels (``plot=False``
     where matplotlib is not installed), the summary and the community
-    snapshot under ``<base_output_dir>/ecology``."""
+    snapshot under ``<base_output_dir>/ecology``. On a rank of the longitude
+    mesh (``mesh``, the rank's columns in) the abundances, the mask and the
+    latitudes are gathered whole first, every rank gets the whole planet's
+    metrics, and rank 0 writes the files."""
     L_s_dev = torch.sum(torch.clamp(_as_tensor(eco_state.LAI_SK), min=0.0), dim=1)
+    if not single(mesh):
+        land_mask = all_gather_lon(_as_tensor(land_mask, L_s_dev), mesh).cpu().numpy()
+        lat_mesh = all_gather_lon(_as_tensor(lat_mesh, L_s_dev), mesh)
+        L_s_dev = all_gather_lon(L_s_dev, mesh)
     wh_dev = compute_whittaker_beta(L_s_dev, land_mask, lat_mesh)
     bc_dev = compute_local_bray_curtis(L_s_dev, land_mask)
     # one transfer: the abundances, the two maps and the three scalars
@@ -106,6 +115,8 @@ def compute_and_plot(lat, lon, lat_mesh, eco_state, land_mask, t_days,
                               (L_s_dev, wh_dev["alpha_map"], bc_dev, scalars))
     wh = {"alpha_mean": float(sc[0]), "gamma_eff": float(sc[1]),
           "beta_whittaker": float(sc[2]), "alpha_map": alpha_map}
+    if not single(mesh) and mesh.rank != 0:
+        return wh
     outdir = os.path.join(base_output_dir, "ecology")
     os.makedirs(outdir, exist_ok=True)
 

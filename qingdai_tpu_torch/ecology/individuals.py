@@ -9,17 +9,25 @@ from per-cell buffers once a day. Every sum has a fixed order of additions,
 so a run on the card replays bit for bit: the per-species sums of a cell's
 individuals are sums over a static one-hot of their species, and the recruit
 spill adds through ``ops.scatter`` plans.
+
+On a rank of the longitude mesh the pool stays replicated
+(``shard_indiv_static``): a sampled cell's values come from its owner
+through one ``all_reduce_sum`` of a [C] vector (the owner's value among
+zeros, exact), and each rank writes back only the cells and spill targets
+in its own columns, each target's additions in the whole grid's order.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import numpy as np
 import torch
 
 from ..config import EcologyConfig
 from ..ops.scatter import index_add_fixed, scatter_plan
+from ..parallel.halo import all_reduce_sum, single
 from . import population as pop_mod
 from .population import EcoState, EcoStatic
 from .spectral import dual_star_insolation_to_bands_points
@@ -39,6 +47,24 @@ class IndivStatic:
     # (individual n is the (n mod per_cell)-th of cell n // per_cell)
     species_onehot: torch.Tensor
     spill: tuple                # ScatterPlan of each recruit-spill direction
+
+
+@dataclasses.dataclass(frozen=True)
+class IndivShard(IndivStatic):
+    """The pool's statics on a rank of the longitude mesh
+    (``shard_indiv_static``): the mesh, which sampled cells the rank owns
+    ([C] bool, and their indices), every cell's flat index in the rank's
+    columns (clamped where not owned), and each spill direction's (plan of
+    its owned targets, their source rows)."""
+    mesh: object = None
+    own: Optional[torch.Tensor] = None
+    own_idx: Optional[torch.Tensor] = None
+    local_flat: Optional[torch.Tensor] = None
+    spill_own: tuple = ()
+
+
+def _mesh(ist: IndivStatic):
+    return ist.mesh if isinstance(ist, IndivShard) else None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -87,11 +113,7 @@ def build_individuals(grid_shape, land_mask, es: EcoStatic, eco: EcoState,
 
     F = max(1, int(cfg.indiv_substeps_per_day))
     onehot = species_id.reshape(C, per_cell)[:, :, None] == np.arange(es.S)[None, None, :]
-    # the recruit spill's targets (individuals.py:292-306, as the JAX package
-    # pairs them); targets of one direction coincide at a clamped pole row
-    spill_j = [np.maximum(jj - 1, 0), np.minimum(jj + 1, H - 1), jj, jj]
-    spill_i = [(ii - 1) % W, (ii + 1) % W, ii, ii]
-    spill = tuple(scatter_plan(a * W + b, device) for a, b in zip(spill_j, spill_i))
+    spill = tuple(scatter_plan(a * W + b, device) for a, b in zip(*_spill_targets(jj, ii, H, W)))
 
     def t(x, dt_=dtype):
         return torch.as_tensor(np.asarray(x)).to(device=device, dtype=dt_)
@@ -113,8 +135,57 @@ def build_individuals(grid_shape, land_mask, es: EcoStatic, eco: EcoState,
     return static, state
 
 
+def _spill_targets(jj, ii, H: int, W: int):
+    """The recruit spill's target rows and columns, one [C] array a
+    direction (individuals.py:292-306, as the JAX package pairs them);
+    targets of one direction coincide at a clamped pole row."""
+    return ([np.maximum(jj - 1, 0), np.minimum(jj + 1, H - 1), jj, jj],
+            [(ii - 1) % W, (ii + 1) % W, ii, ii])
+
+
+def shard_indiv_static(ist: IndivStatic, mesh, n_lat: int, n_lon: int) -> IndivShard:
+    """The pool's statics on a rank of ``mesh``: the pool whole, with the
+    rank's sampled cells, their flat indices in its columns and its share
+    of each spill direction."""
+    lon0, w = mesh.cols(n_lon)
+    jj, ii = ist.sample_j.cpu().numpy(), ist.sample_i.cpu().numpy()
+    own = (ii >= lon0) & (ii < lon0 + w)
+    dev = ist.sample_j.device
+    spill_own = []
+    for tj, ti in zip(*_spill_targets(jj, ii, n_lat, n_lon)):
+        sel = np.flatnonzero((ti >= lon0) & (ti < lon0 + w))
+        spill_own.append((scatter_plan(tj[sel] * w + ti[sel] - lon0, dev),
+                          torch.as_tensor(sel, dtype=torch.int64).to(dev)))
+    as_idx = lambda x: torch.as_tensor(np.asarray(x, np.int64)).to(dev)
+    return IndivShard(
+        **{f.name: getattr(ist, f.name) for f in dataclasses.fields(IndivStatic)}, mesh=mesh,
+        own=torch.as_tensor(own).to(dev), own_idx=as_idx(np.flatnonzero(own)),
+        local_flat=as_idx(jj * w + np.clip(ii - lon0, 0, w - 1)), spill_own=tuple(spill_own))
+
+
 def _at_cells(ist: IndivStatic, field: torch.Tensor) -> torch.Tensor:
-    return field[ist.sample_j, ist.sample_i]
+    """The field's value at each sampled cell [C]; on a mesh from the
+    cell's owner (the others add zeros)."""
+    return _at_cells_many(ist, field)[0]
+
+
+def _at_cells_many(ist: IndivStatic, *fields) -> tuple:
+    """``_at_cells`` of each field; on a mesh with one collective."""
+    if single(_mesh(ist)):
+        return tuple(f[ist.sample_j, ist.sample_i] for f in fields)
+    got = _from_owners(ist, torch.stack([f.reshape(-1).to(torch.float64) for f in fields]), 1)
+    return tuple(g > 0.5 if f.dtype == torch.bool else g.to(f.dtype)
+                 for f, g in zip(fields, got))
+
+
+def _from_owners(ist: IndivStatic, flat: torch.Tensor, dim: int) -> torch.Tensor:
+    """``flat``'s entries along ``dim`` at the sampled cells, summed over
+    ranks with zeros where a rank does not own the cell."""
+    vals = flat.index_select(dim, ist.local_flat)
+    own = ist.own.reshape((-1,) + (1,) * (vals.dim() - dim - 1))
+    if vals.dtype == torch.bool:
+        return all_reduce_sum((vals & own).to(torch.int32), ist.mesh) > 0
+    return all_reduce_sum(torch.where(own, vals, torch.zeros_like(vals)), ist.mesh)
 
 
 def indiv_try_substep(ist: IndivStatic, st: IndivState, es: EcoStatic,
@@ -129,11 +200,13 @@ def indiv_try_substep(ist: IndivStatic, st: IndivState, es: EcoStatic,
     accum = st.substep_accum + dt
     fire = accum >= period
 
+    glacier = () if glacier_mask is None else (glacier_mask,)
+    at = _at_cells_many(ist, isr_A, isr_B, soil_idx, *glacier)
     I_b_cells = dual_star_insolation_to_bands_points(
-        _at_cells(ist, isr_A), _at_cells(ist, isr_B), es.specA, es.specB, es.T_ray)  # [C, NB]
+        at[0], at[1], es.specA, es.specB, es.T_ray)  # [C, NB]
     if glacier_mask is not None:
-        I_b_cells = torch.where(_at_cells(ist, glacier_mask)[:, None], 0.0, I_b_cells)
-    soil_cells = _at_cells(ist, soil_idx).to(st.soil_buf.dtype)
+        I_b_cells = torch.where(at[3][:, None], 0.0, I_b_cells)
+    soil_cells = at[2].to(st.soil_buf.dtype)
     slot = torch.remainder(st.fire_idx, ist.fires_per_day).to(torch.int64).reshape(1)
     soil_buf = st.soil_buf.index_copy(0, slot, soil_cells[None])
     return dataclasses.replace(
@@ -201,7 +274,9 @@ def indiv_step_daily(ist: IndivStatic, st: IndivState, es: EcoStatic,
     S_, K, H, W_ = LAI_SK.shape
     flat_cells = ist.sample_j * W_ + ist.sample_i
     LAI_flat = LAI_SK.reshape(S_, K, H * W_)
-    cols = LAI_flat.index_select(2, flat_cells)                # [S,K,C]
+    sharded = not single(_mesh(ist))
+    cols = (_from_owners(ist, LAI_flat, 2) if sharded
+            else LAI_flat.index_select(2, flat_cells))        # [S,K,C]
     total_k = torch.sum(cols, dim=0)                           # [K,C]
     total_old = torch.sum(total_k, dim=0)                      # [C]
 
@@ -218,19 +293,27 @@ def indiv_step_daily(ist: IndivStatic, st: IndivState, es: EcoStatic,
     new_k = total_k * scale[None, :]                           # [K,C]
     new_cols = W_s_c[:, None, :] * new_k[None, :, :]           # [S,K,C]
     # the sampled cells are distinct, so this is a plain write
-    LAI_flat = LAI_flat.index_copy(2, flat_cells, new_cols)
+    if sharded:
+        LAI_flat = LAI_flat.index_copy(2, ist.local_flat.index_select(0, ist.own_idx),
+                                       new_cols.index_select(2, ist.own_idx))
+    else:
+        LAI_flat = LAI_flat.index_copy(2, flat_cells, new_cols)
 
     # recruit spill to 4 neighbours (individuals.py:292-306); neighbours of
     # two sampled cells may coincide, so the adds accumulate, in a fixed order
     recruit = torch.clamp(new_total - total_old, min=0.0) * cfg.lai_recruit_frac
     share = recruit / 4.0
     add_each = ((share / max(K, 1))[None, None, :] * W_s_c[:, None, :]).expand(S, K, C)
-    for plan in ist.spill:
-        LAI_flat = index_add_fixed(LAI_flat, 2, plan, add_each)
+    if sharded:
+        for plan, rows in ist.spill_own:
+            LAI_flat = index_add_fixed(LAI_flat, 2, plan, add_each.index_select(2, rows))
+    else:
+        for plan in ist.spill:
+            LAI_flat = index_add_fixed(LAI_flat, 2, plan, add_each)
 
     LAI_SK = torch.clamp(LAI_flat.reshape(S_, K, H, W_), 0.0, cfg.lai_max)
     eco = dataclasses.replace(eco, LAI_SK=LAI_SK)
-    eco = pop_mod.recompute_weights_from_LAI(eco, es)
+    eco = pop_mod.recompute_weights_from_LAI(eco, es, _mesh(ist))
 
     # seed-bank coupling (individuals.py:314-337); the reference's soil gate
     # there never runs, QD_ECO_INDIV_SEED_SOIL_GATE opts into it
@@ -241,7 +324,12 @@ def indiv_step_daily(ist: IndivStatic, st: IndivState, es: EcoStatic,
         if cfg.indiv_seed_soil_gate:
             seeds_cells = seeds_cells * torch.clamp(soil_cells, 0.0, 1.0)
         seeds_cells = cfg.seed_bank_retain * seeds_cells
-        sb = eco.seed_bank.reshape(-1).index_add(0, flat_cells, seeds_cells).reshape(H, W_)
+        if sharded:
+            sb = eco.seed_bank.reshape(-1).index_add(
+                0, ist.local_flat.index_select(0, ist.own_idx),
+                seeds_cells.index_select(0, ist.own_idx)).reshape(H, W_)
+        else:
+            sb = eco.seed_bank.reshape(-1).index_add(0, flat_cells, seeds_cells).reshape(H, W_)
         eco = dataclasses.replace(eco, seed_bank=torch.clamp(sb, 0.0, cfg.seed_bank_max))
 
     # reset the buffers and decay the stress (individuals.py:339-356)

@@ -20,6 +20,7 @@ from ..grid import Grid
 from ..ops import safegrad
 from ..ops.advect import advect_semilag_multi
 from ..ops.stencil import laplacian_sphere
+from ..parallel.halo import gsums
 from . import spectral as spec
 
 
@@ -205,16 +206,19 @@ def phyto_apply_transport(ps: PhytoStatic, st: PhytoState, cfg: PhytoConfig,
     if cfg.K_h > 0.0:
         C = torch.nan_to_num(C)
         C = C + dt * cfg.K_h * laplacian_sphere(C, grid.dlat_rad, grid.dlon_rad,
-                                                grid.coslat_cap_05, a)
+                                                grid.coslat_cap_05, a, grid.mesh)
     C = torch.where(ps.ocean[None], torch.clamp(C, min=0.0), 0.0)
 
-    # polar ring averaging (phyto.py:531-547), both rows in one pass
+    # polar ring averaging (phyto.py:531-547), both rows in one pass (on a
+    # mesh, their sums and counts over every rank in one collective)
+    rows = (0, -1)
+    sums = gsums([x for r in rows for x in (torch.sum(ps.ocean[r]), torch.sum(
+        torch.where(ps.ocean[r][None], C[:, r], 0.0), dim=1))], grid.mesh)
     news = []
-    for row in (0, -1):
-        m = ps.ocean[row]
-        cnt = torch.clamp(torch.sum(m), min=1)
-        mean_row = torch.sum(torch.where(m[None], C[:, row], 0.0), dim=1) / cnt
-        news.append(torch.where(m[None] & torch.any(m), mean_row[:, None], C[:, row]))
+    for k, row in enumerate(rows):
+        m, n = ps.ocean[row], sums[2 * k]
+        mean_row = sums[2 * k + 1] / torch.clamp(n, min=1)
+        news.append(torch.where(m[None] & (n > 0), mean_row[:, None], C[:, row]))
     rows = torch.arange(C.shape[1], device=C.device)[None, :, None]
     C = torch.where(rows == 0, news[0][:, None, :],
                     torch.where(rows == C.shape[1] - 1, news[1][:, None, :], C))
@@ -226,5 +230,5 @@ def phyto_advect_diffuse(ps: PhytoStatic, st: PhytoState, cfg: PhytoConfig,
     """Per-physics-step transport of every species (phyto.py:496-547): one
     departure-point gather shared by the species (kernel K2 on a card)."""
     C_adv = advect_semilag_multi(st.C_phyto, uo, vo, dt, const.PLANET_RADIUS,
-                                 grid.dlat_rad, grid.dlon_rad, grid.coslat_cap_05)
+                                 grid.dlat_rad, grid.dlon_rad, grid.coslat_cap_05, grid.mesh)
     return phyto_apply_transport(ps, st, cfg, grid, C_adv, dt)

@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from ..config import EcologyConfig
+from ..parallel.halo import gsum, pad_lon, single
 from . import genes as genes_mod
 from . import spectral as spec
 
@@ -182,16 +183,25 @@ def total_LAI(state: EcoState) -> torch.Tensor:
     return torch.sum(state.LAI_SK, dim=(0, 1))
 
 
+def _nanmean(x: torch.Tensor, mesh) -> torch.Tensor:
+    """``torch.nanmean`` of the whole field (on a mesh, from the sums and
+    counts of every rank)."""
+    if single(mesh):
+        return torch.nanmean(x)
+    ok = ~torch.isnan(x)
+    return gsum(torch.where(ok, x, 0.0), mesh) / gsum(ok, mesh)
+
+
 def eco_step_subdaily(es: EcoStatic, state: EcoState, cfg: EcologyConfig,
-                      isr_total, dt: float):
+                      isr_total, dt: float, mesh=None):
     """Accumulate the day's energy, refresh the canopy cache by policy, and
     return the land-only scalar ecology albedo (adapter.py:140-186)."""
     E_day = state.E_day + torch.nan_to_num(isr_total) * dt
     hours = state.hours_accum + dt / 3600.0
 
     lai_now = total_LAI(state)
-    delta = torch.nanmean(torch.abs(lai_now - state.lai_snapshot))
-    base = torch.nanmean(torch.clamp(state.lai_snapshot, min=1e-6))
+    delta = _nanmean(torch.abs(lai_now - state.lai_snapshot), mesh)
+    base = _nanmean(torch.clamp(state.lai_snapshot, min=1e-6), mesh)
     ratio = torch.where(base > 0, delta / base, delta)
     need = (hours >= state.next_recompute_hours) | (ratio >= cfg.lai_recompute_delta)
     # both branches are cheap: select on the device instead of branching
@@ -220,6 +230,15 @@ def _neighbor_offsets(cfg: EcologyConfig):
 def _roll2(x, dy, dx):
     """jnp.roll(x, shift=(dy, dx), axis=(-2, -1))."""
     return torch.roll(x, shifts=(dy, dx), dims=(-2, -1))
+
+
+def _roller(x, mesh, k: int):
+    """(dy, dx) -> ``_roll2(x, dy, dx)`` for |dx| <= k; on a mesh from one
+    halo of k columns (rows are whole, so the latitude roll stays local)."""
+    if single(mesh):
+        return lambda dy, dx: _roll2(x, dy, dx)
+    xp, w = pad_lon(x, k, "wrap", mesh), x.shape[-1]
+    return lambda dy, dx: torch.roll(xp, dy, -2)[..., k - dx:k - dx + w]
 
 
 class MutationDraws(typing.NamedTuple):
@@ -262,11 +281,14 @@ def mutation_draws(es: EcoStatic, state: EcoState,
 
 def eco_step_daily(es: EcoStatic, state: EcoState, cfg: EcologyConfig,
                    soil_water_index, generator: torch.Generator | None = None,
-                   draws: MutationDraws | None = None) -> EcoState:
+                   draws: MutationDraws | None = None, mesh=None) -> EcoState:
     """Daily LAI update, spread, germination and mutation
     (population.py:389-596, adapter.py:429-515). When QD_ECO_MUT_RATE > 0
     the mutation takes ``draws``, or draws them from ``generator``
-    (``mutation_draws``)."""
+    (``mutation_draws``). On a rank of ``mesh`` the spread's rolls take a
+    halo of the offsets' largest |dx| columns and the species totals add
+    across ranks; the mutation draws the same numbers on every rank (its
+    draws have no per-cell axis)."""
     S, K = es.S, es.K
     land = es.land
     landf = land.to(state.E_day.dtype)
@@ -328,10 +350,12 @@ def eco_step_daily(es: EcoStatic, state: EcoState, cfg: EcologyConfig,
     seed_bank = state.seed_bank
     if cfg.spread_enable and cfg.spread_rate > 0.0:
         offsets = _neighbor_offsets(cfg)
+        k = max(abs(dx) for _, dx in offsets)
         rate = float(max(0.0, min(0.5, cfg.spread_rate)))
         num_valid = torch.zeros_like(landf)
+        roll = _roller(landf, mesh, k)
         for dy, dx in offsets:
-            num_valid = num_valid + _roll2(landf, -dy, -dx)
+            num_valid = num_valid + roll(-dy, -dx)
 
         LAI_s = torch.sum(LAI_SK, dim=1)  # [S,H,W]
 
@@ -339,8 +363,9 @@ def eco_step_daily(es: EcoStatic, state: EcoState, cfg: EcologyConfig,
         outflow = rate * LAI_s * gate[None]
         share = torch.where(num_valid[None] > 0.0, outflow / (num_valid[None] + 1e-12), 0.0)
         inflow = torch.zeros_like(share)
+        roll = _roller(share, mesh, k)
         for dy, dx in offsets:
-            inflow = inflow + _roll2(share, dy, dx)
+            inflow = inflow + roll(dy, dx)
         raw = LAI_s - outflow + inflow
         inc = raw - LAI_s
         inc_pos = torch.clamp(torch.clamp(inc, min=0.0), max=cfg.spread_dlai_max)
@@ -362,8 +387,9 @@ def eco_step_daily(es: EcoStatic, state: EcoState, cfg: EcologyConfig,
         seeds_share = torch.where(num_valid[None] > 0.0,
                                   r_eff * Seeds_s / (num_valid[None] + 1e-12), 0.0)
         add = torch.zeros_like(seeds_share)
+        roll = _roller(seeds_share, mesh, k)
         for dy, dx in offsets:
-            add = add + cfg.seedling_lai * _roll2(seeds_share, dy, dx)
+            add = add + cfg.seedling_lai * roll(dy, dx)
         add = torch.clamp(add, max=cfg.seed_dlai_max) * landf[None]
 
         # combine per species by mode
@@ -401,7 +427,7 @@ def eco_step_daily(es: EcoStatic, state: EcoState, cfg: EcologyConfig,
             draws = mutation_draws(es, new_state, generator)
         fire = (draws.u < cfg.mut_rate) & (new_state.n_active < cfg.species_max)
         # the mutated state is computed and selected on the device: no host sync
-        mutated = _mutate(es, new_state, cfg, draws)
+        mutated = _mutate(es, new_state, cfg, draws, mesh)
         new_state = EcoState(**{f.name: torch.where(fire, getattr(mutated, f.name),
                                                     getattr(new_state, f.name))
                                 for f in dataclasses.fields(EcoState)})
@@ -409,7 +435,7 @@ def eco_step_daily(es: EcoStatic, state: EcoState, cfg: EcologyConfig,
 
 
 def _mutate(es: EcoStatic, state: EcoState, cfg: EcologyConfig,
-            draws: MutationDraws) -> EcoState:
+            draws: MutationDraws, mesh=None) -> EcoState:
     """Split a fraction of a weighted-random parent's LAI into the next free
     slot and jitter its genome (population.py:361-387, adapter.py:471-515)."""
     S = es.S
@@ -468,14 +494,14 @@ def _mutate(es: EcoStatic, state: EcoState, cfg: EcologyConfig,
         lifespan_days=put(state.lifespan_days, life_n),
         parent_idx=put(state.parent_idx, parent[0]),
     )
-    return recompute_weights_from_LAI(st, es)
+    return recompute_weights_from_LAI(st, es, mesh)
 
 
-def recompute_weights_from_LAI(state: EcoState, es: EcoStatic) -> EcoState:
+def recompute_weights_from_LAI(state: EcoState, es: EcoStatic, mesh=None) -> EcoState:
     """species_weights ← normalized area-summed per-species LAI
     (population.py:343-359)."""
     L_s = torch.sum(torch.clamp(state.LAI_SK, min=0.0), dim=1)  # [S,H,W]
-    totals = torch.sum(torch.where(es.land[None], L_s, 0.0), dim=(1, 2))
+    totals = gsum(torch.where(es.land[None], L_s, 0.0), mesh, dim=(1, 2))
     totals = torch.where(state.active, totals, 0.0)
     ssum = torch.sum(totals)
     nact = torch.clamp(state.n_active, min=1).to(state.species_weights.dtype)

@@ -26,8 +26,12 @@ its random stream included; the others have their own streams. The JAX
 package's ``fold_in`` streams cannot be reproduced in torch, so the members'
 numbers differ from the JAX package's.
 
-Not ported here: ``make_member_mesh`` and ``shard_ensemble`` (member
-sharding across devices), which wait for the port's multi-GPU work.
+The member mesh (``make_member_mesh``, ``shard_ensemble``,
+``gather_ensemble``) splits the members over ``torch.distributed`` ranks:
+each rank advances its B/n members with the batched kernels, members
+exchange nothing inside a chunk, and ``gather_ensemble`` collects them, for
+example for an analysis of the whole ensemble (``assim``). Each rank keeps
+its members' generators, so a member draws the numbers it draws unsharded.
 """
 
 from __future__ import annotations
@@ -40,6 +44,8 @@ import torch
 
 from . import model as M
 from .ecology import population as eco_mod
+from .parallel.halo import all_gather_members
+from .parallel.mesh import Mesh, make_mesh
 from .state import WorldState
 
 # the shared clock: (group, field) of every leaf that is the same for all
@@ -252,6 +258,35 @@ def make_ensemble_chunk_fn(model: M.Model, chunk_steps: Optional[int] = None,
         return run_steps(model, ens, n, de, step, step_nd, generators)
 
     return chunk
+
+
+def make_member_mesh(backend: str = "nccl", device="cuda", **kw) -> Mesh:
+    """The member mesh: this process's rank of ``parallel.mesh.make_mesh``
+    (same arguments), whose ranks each take B/n of an ensemble's members."""
+    return make_mesh(backend, device, **kw)
+
+
+def _members_of(mesh: Mesh, b: int) -> slice:
+    if b % mesh.n:
+        raise ValueError(f"{b} members do not divide over {mesh.n} ranks")
+    k = b // mesh.n
+    return slice(mesh.rank * k, (mesh.rank + 1) * k)
+
+
+def shard_ensemble(ens: WorldState, mesh: Mesh, generators=None):
+    """The rank's members of ``ens`` (B divisible by the rank count), the
+    shared clock replicated; with ``generators`` also the rank's share of
+    them: (ens, generators)."""
+    sl = _members_of(mesh, n_members(ens))
+    per, shared = _split(ens)
+    out = _join(ens, tuple(v[sl] for v in per), shared)
+    return out if generators is None else (out, list(generators)[sl])
+
+
+def gather_ensemble(ens: WorldState, mesh: Mesh) -> WorldState:
+    """Every member on every rank from the ranks' shards, in member order."""
+    per, shared = _split(ens)
+    return _join(ens, tuple(all_gather_members(v, mesh) for v in per), shared)
 
 
 def spread_diagnostics(diags: dict) -> dict:

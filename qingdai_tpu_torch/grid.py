@@ -2,6 +2,15 @@
 
 All latitude-dependent metric maps are computed once in float64 NumPy, exactly
 as the JAX package does, and cast to the model dtype on the model device.
+
+A rank of the longitude mesh holds a shard's grid
+(``parallel.mesh.shard_grid``): its columns of every map and of ``lon``, the
+global ``n_lon`` and ``dlon_rad``, ``lon0``, ``width`` and the mesh, as the
+JAX ``Grid`` carries its mesh. The operators below reach across ranks
+through ``parallel.halo``, bit-equal to the whole grid's. A shard's grid
+also holds its maps over its columns and some of its neighbours'
+(``padded``, cut from the whole grid when the shard is made): the static
+operands of a padded stencil, which then need no exchange.
 """
 
 from __future__ import annotations
@@ -12,11 +21,14 @@ import numpy as np
 import torch
 
 from . import constants as const
+from .parallel.halo import lon_neighbours, pad_lon, single
 
 
 @dataclasses.dataclass(frozen=True)
 class Grid:
-    """Static grid metrics. All 2-D fields are (n_lat, n_lon)."""
+    """Static grid metrics. All 2-D fields are (n_lat, width): the whole
+    grid's n_lon columns, or on a rank of ``mesh`` its ``width`` columns
+    from global column ``lon0``."""
     n_lat: int
     n_lon: int
     dlat_rad: float
@@ -35,10 +47,35 @@ class Grid:
     area_w: torch.Tensor         # max(cosφ, 0) area weights
     cell_area: torch.Tensor      # spherical cell areas (m^2)
     k4_map_unit: torch.Tensor    # min(a·dlat, a·dlon·max(cos,1e-3))^4
+    lon0: int = 0                # the first column held (a mesh rank's shard)
+    width: int = 0               # the columns held: n_lon unless sharded
+    mesh: object = None          # parallel.mesh.Mesh of a shard
+    padded: object = None        # a shard's Grid over its columns ± pad (wrapped)
 
     @property
     def shape(self):
-        return (self.n_lat, self.n_lon)
+        return (self.n_lat, self.width or self.n_lon)
+
+    def padded_by(self, h: int) -> "Grid":
+        """A shard's maps over its columns padded by ``h`` on each side, cut
+        from ``padded`` (no exchange): a Grid whose ``lon0`` is the first
+        column held, wrapped, and whose ``width`` is ``width + 2·h``."""
+        if self.padded is None:
+            raise ValueError("this grid holds no padded maps (parallel.mesh.shard_grid's pad)")
+        p = (self.padded.width - self.width) // 2
+        if not 0 <= h <= p:
+            raise ValueError(f"a pad of {h} columns exceeds the shard's padded maps' {p}")
+        wp = self.padded.width
+
+        def crop(t):
+            if isinstance(t, torch.Tensor) and t.dim() and t.shape[-1] == wp:
+                return t[..., p - h:p + self.width + h]
+            return t
+
+        return dataclasses.replace(
+            self.padded, lat=self.lat, lon0=self.lon0 - h, width=self.width + 2 * h,
+            **{f.name: crop(getattr(self.padded, f.name)) for f in dataclasses.fields(self)
+               if isinstance(getattr(self.padded, f.name), torch.Tensor) and f.name != "lat"})
 
 
 def resolve_device(device) -> torch.device:
@@ -89,7 +126,7 @@ def make_grid(n_lat: int, n_lon: int, device="cuda", dtype=torch.float32) -> Gri
         f=as_t(2.0 * const.PLANET_OMEGA * np.sin(lat_rad)),
         area_w=as_t(np.maximum(cos, 0.0)),
         cell_area=as_t(cell_area),
-        k4_map_unit=as_t(k4_map_unit),
+        k4_map_unit=as_t(k4_map_unit), width=n_lon,
     )
 
 
@@ -108,7 +145,8 @@ def _zero_pole_rows(x: torch.Tensor) -> torch.Tensor:
 def divergence(grid: Grid, u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """(1/(a cosφ)) [∂u/∂λ + ∂(v cosφ)/∂φ] with pole rows of the φ-term zeroed."""
     a = const.PLANET_RADIUS
-    du_dlon = (torch.roll(u, -1, 1) - torch.roll(u, 1, 1)) / (2.0 * grid.dlon_rad)
+    east, west = lon_neighbours(u, grid.mesh)
+    du_dlon = (east - west) / (2.0 * grid.dlon_rad)
     v_cos = v * grid.coslat
     dv_dlat = (torch.roll(v_cos, -1, 0) - torch.roll(v_cos, 1, 0)) / (2.0 * grid.dlat_rad)
     return (du_dlon + _zero_pole_rows(dv_dlat)) / (a * grid.coslat_cap_tiny)
@@ -117,7 +155,8 @@ def divergence(grid: Grid, u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
 def vorticity(grid: Grid, u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """(1/(a cosφ)) [∂v/∂λ − ∂(u cosφ)/∂φ] with pole rows of the φ-term zeroed."""
     a = const.PLANET_RADIUS
-    dv_dlon = (torch.roll(v, -1, 1) - torch.roll(v, 1, 1)) / (2.0 * grid.dlon_rad)
+    east, west = lon_neighbours(v, grid.mesh)
+    dv_dlon = (east - west) / (2.0 * grid.dlon_rad)
     u_cos = u * grid.coslat
     du_dlat = (torch.roll(u_cos, -1, 0) - torch.roll(u_cos, 1, 0)) / (2.0 * grid.dlat_rad)
     return (dv_dlon - _zero_pole_rows(du_dlat)) / (a * grid.coslat_cap_tiny)
@@ -125,8 +164,24 @@ def vorticity(grid: Grid, u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
 
 def grad_lonlat(grid: Grid, F: torch.Tensor):
     """np.gradient-equivalent (∂F/∂λ, ∂F/∂φ): central differences, one-sided
-    at both edges of each axis, including the longitude seam."""
-    return gradient_np(F, grid.dlon_rad, 1), gradient_np(F, grid.dlat_rad, 0)
+    at both edges of each axis, including the longitude seam (on a mesh,
+    only the ranks holding global column 0 or W−1 take one-sided edges)."""
+    if single(grid.mesh):
+        return gradient_np(F, grid.dlon_rad, 1), gradient_np(F, grid.dlat_rad, 0)
+    return _gradient_lon_sharded(F, grid.dlon_rad, grid.mesh), gradient_np(F, grid.dlat_rad, 0)
+
+
+def _gradient_lon_sharded(F: torch.Tensor, d: float, mesh) -> torch.Tensor:
+    """``gradient_np`` along the sharded longitude axis: the central
+    difference from a one-column halo, the one-sided edge at the seam."""
+    Fp = pad_lon(F, 1, "wrap", mesh)
+    w = F.shape[-1]
+    cols = [(Fp[..., 2:] - Fp[..., :w]) / (2.0 * d)]
+    if mesh.rank == 0:
+        cols = [(F[..., 1:2] - F[..., 0:1]) / d, cols[0][..., 1:]]
+    if mesh.rank == mesh.n - 1:
+        cols = cols[:-1] + [cols[-1][..., :-1], (F[..., w - 1:] - F[..., w - 2:w - 1]) / d]
+    return torch.cat(cols, dim=-1)
 
 
 def gradient_np(F: torch.Tensor, d: float, dim: int) -> torch.Tensor:

@@ -72,19 +72,24 @@ def launch(name: str, dtype: torch.dtype, device: torch.device, *args) -> None:
 
 
 def wrappers() -> dict:
-    """The kernel wrappers by kernel name: the four single forms and their
-    batched forms (one launch for an ensemble's members), each counted
-    apart."""
-    from .advect_bilinear import advect_bilinear_batched_cuda, advect_bilinear_cuda
+    """The kernel wrappers by kernel name: the four single forms, their
+    batched forms (one launch for an ensemble's members) and the sharded
+    forms of K2 and K4 (a rank of the longitude mesh; K4's launches two
+    kernels a substep, each counted), each counted apart."""
+    from .advect_bilinear import (advect_bilinear_batched_cuda, advect_bilinear_cuda,
+                                  advect_bilinear_sharded_cuda)
     from .hyper4 import hyperdiffuse_batched_cuda, hyperdiffuse_cuda
     from .median_pos import median_pos_batched_cuda, median_pos_cuda
-    from .ocean_substeps import ocean_substeps_batched_cuda, ocean_substeps_cuda
+    from .ocean_substeps import (ocean_substep_sharded_cuda, ocean_substeps_batched_cuda,
+                                 ocean_substeps_cuda)
     return {"median_pos": median_pos_cuda, "advect_bilinear": advect_bilinear_cuda,
             "hyper4": hyperdiffuse_cuda, "ocean_substeps": ocean_substeps_cuda,
             "median_pos_batched": median_pos_batched_cuda,
             "advect_bilinear_batched": advect_bilinear_batched_cuda,
             "hyper4_batched": hyperdiffuse_batched_cuda,
-            "ocean_substeps_batched": ocean_substeps_batched_cuda}
+            "ocean_substeps_batched": ocean_substeps_batched_cuda,
+            "advect_bilinear_sharded": advect_bilinear_sharded_cuda,
+            "ocean_substeps_sharded": ocean_substep_sharded_cuda}
 
 
 def launch_counts() -> dict:

@@ -33,10 +33,13 @@ _P, _I, _LL, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_dou
 # batched forms launch once for an ensemble's members, the single forms pass 1)
 SIGNATURES = {
     "qd_median_pos": [_P, _LL, _I, _LL, _D, _P, _P, _P],
-    "qd_advect_bilinear": [_P] * 6 + [_I] + [_LL] * 4 + [_I] * 3 + [_D] * 4 + [_P],
+    "qd_advect_bilinear": [_P] * 6 + [_I] + [_LL] * 4 + [_I] * 5 + [_D] * 4 + [_P],
     "qd_hyper4": [_P] * 5 + [_I] + [_LL] * 3 + [_I] * 4 + [_D] * 4 + [_P],
     "qd_ocean_substeps": ([_P] * 10 + [_I, _I] + [_LL] * 4 + [_I] * 5 + [_D] * 9
                           + [_I, _D, _D, _I, _D, _P, _P]),
+    # K4's sharded form: launch A (the tile pass) and launch B (the finish)
+    "qd_ocean_tiles_sharded": [_P] * 8 + [_I] * 9 + [_D] * 9 + [_I, _D, _P],
+    "qd_ocean_finish_sharded": [_P] * 3 + [_I, _I, _D, _I, _D, _P],
 }
 # C signatures of the shape queries: the halos (rows, cols) and K4's tile count
 QUERY_SIGNATURES = {

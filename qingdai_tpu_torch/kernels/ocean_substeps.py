@@ -3,7 +3,10 @@ substep loop on halo tiles, one grid-wide dependency (the η mean) a substep;
 the batched form runs every member of an ensemble in the same launch.
 
 Replaces ``ocean_substeps_pallas`` (``qingdai_tpu/ops/pallas_ocean.py``);
-plain version ``ocean.ocean_substeps_plain``.
+plain version ``ocean.ocean_substeps_plain``. The sharded form (a rank of
+the longitude mesh) runs one substep as two launches around the cross-rank
+sum of the η mean's partial sums; its plain version is the same plain
+substep on the rank's columns (``ocean._substeps`` with the mesh).
 """
 
 from __future__ import annotations
@@ -106,6 +109,60 @@ def ocean_substeps_batched_cuda(mom: torch.Tensor, st: torch.Tensor, forc: torch
 
 
 ocean_substeps_batched_cuda.launches = 0
+
+
+def ocean_substep_sharded_cuda(mom_p: torch.Tensor, st_g: torch.Tensor, forc_p: torch.Tensor,
+                               geo_p: torch.Tensor, *, pad: int, lon0: int, reduce_sums,
+                               k4_nsub: int, sub_dt: float, H_m: float, r_bot: float, g: float,
+                               a: float, dlat: float, dlon: float, K_h: float,
+                               adv_alpha: float, use_qnet: bool, ice_qfac: float, cap: float,
+                               mean4: bool, eta_cap: float, n_sub: int = 1):
+    """K4's sharded form, one substep of a rank: launch A (the tile pass on
+    the rank's tiles, their partial sums of E·w and w), ``reduce_sums`` of
+    the rank's float64 [2] sums (the sum over every rank, on the card), then
+    launch B (the η mean removed and the rank's cells finished). ``mom_p``,
+    ``forc_p`` [3, H, W + 2·pad] and ``geo_p`` [12, H, W + 2·pad] are the
+    rank's columns padded by ``pad`` >= ``halo(k4_nsub)[1]`` neighbour
+    columns, ``st_g`` [n_st, H, Wf] the whole stack, whose column lon0 + c is
+    owned column c. Returns (mom' [3, H, W], st' [n_st, H, W]). ``n_sub``
+    must be 1: the caller exchanges the halo and gathers st between
+    substeps."""
+    if n_sub != 1:
+        raise ValueError("the sharded form runs one substep a call")
+    n_st, H, Wf = st_g.shape
+    Wp = mom_p.shape[-1]
+    W = Wp - 2 * pad
+    if pad < halo(k4_nsub)[1] or W < 1 or not 0 <= lon0 <= Wf - W:
+        raise ValueError(f"pad {pad}, padded width {Wp} and lon0 {lon0} do not fit the halo "
+                         f"{halo(k4_nsub)[1]} and the whole width {Wf}")
+    for t, name, shape in ((mom_p, "mom_p", (3, H, Wp)), (st_g, "st_g", (n_st, H, Wf)),
+                           (forc_p, "forc_p", (3, H, Wp)), (geo_p, "geo_p", (12, H, Wp))):
+        check_tensor(t, name, st_g.dtype, shape)
+    if k4_nsub not in ocean_substeps_cuda.halo_checked:
+        check_halo(k4_nsub)
+        ocean_substeps_cuda.halo_checked.add(k4_nsub)
+    dev, dtype = st_g.device, st_g.dtype
+    mom_out = torch.empty((3, H, W), dtype=dtype, device=dev)
+    st_out = torch.empty((n_st, H, W), dtype=dtype, device=dev)
+    uvs = torch.empty((2, H, W + 2), dtype=dtype, device=dev)
+    tiles = n_tiles(dtype, dev, H, W, k4_nsub)
+    partials = torch.empty((2, tiles), dtype=dtype, device=dev)
+    launch("qd_ocean_tiles_sharded", dtype, dev, mom_p.data_ptr(), st_g.data_ptr(),
+           forc_p.data_ptr(), geo_p.data_ptr(), mom_out.data_ptr(), st_out.data_ptr(),
+           uvs.data_ptr(), partials.data_ptr(), tiles, n_st, H, W, Wp, Wf, int(pad),
+           int(lon0), int(k4_nsub), float(sub_dt), float(H_m), float(r_bot), float(g),
+           float(a), float(dlat), float(dlon), float(K_h), float(adv_alpha),
+           int(bool(use_qnet)), float(ice_qfac))
+    ocean_substep_sharded_cuda.launches += 1
+    sums = reduce_sums(torch.sum(partials.to(torch.float64), dim=1)).contiguous()
+    check_tensor(sums, "sums", torch.float64, (2,))
+    launch("qd_ocean_finish_sharded", dtype, dev, mom_out.data_ptr(), uvs.data_ptr(),
+           sums.data_ptr(), H, W, float(cap), int(bool(mean4)), float(eta_cap))
+    ocean_substep_sharded_cuda.launches += 1
+    return mom_out, st_out
+
+
+ocean_substep_sharded_cuda.launches = 0
 
 
 def _run(mom, st, forc, geo, n_members, *, n_sub, k4_nsub, sub_dt, H_m, r_bot, g, a, dlat,

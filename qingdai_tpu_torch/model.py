@@ -15,6 +15,13 @@ the two day accumulators of the clock and the routing event clock, which
 depend only on the step count and dt, so each daily block runs once a day
 and each routing event once every ``QD_HYDRO_DT_HOURS``, not as a masked
 computation every step.
+
+The same step runs on a rank of the longitude mesh when the model's grid
+carries one (``build_model(..., mesh=)``, ``parallel.mesh``): the state and
+the statics are the rank's columns, the ops reach across ranks, and every
+diag is a sum over every rank, so all ranks hold the same values. The
+Python ``if``s read host numbers that every rank holds equal, and the
+mutation draws the same numbers on every rank from ``model.generator``.
 """
 
 from __future__ import annotations
@@ -37,6 +44,7 @@ from .ocean import ocean_diagnostics, ocean_step, static_substeps
 from .ops.advect import advect_semilag_multi
 from .ops.reductions import area_mean, masked_median_of_positive
 from .ops.smooth import gaussian_filter
+from .parallel.halo import gmax, gsum
 from .physics import clouds as ph
 from .physics import energy as en
 from .physics import forcing
@@ -81,10 +89,13 @@ class Model:
 
 def build_model(cfg: SimConfig, land_mask, base_albedo, friction, elevation=None,
                 network: Optional[dict] = None, device="cuda",
-                dtype=torch.float32) -> Model:
+                dtype=torch.float32, mesh=None) -> Model:
     """Assemble the static data from topography and network arrays (host
     side). Runs on the card unless ``device`` says otherwise. Routing is
-    built when it is on and a ``network`` is given, as in the JAX package."""
+    built when it is on and a ``network`` is given, as in the JAX package.
+    With ``mesh`` (``parallel.mesh.make_mesh``) the model of the rank's
+    shard, whose state is ``parallel.mesh.shard_state`` of the whole
+    model's ``init_world``."""
     device = resolve_device(device)
     grid = make_grid(cfg.run.n_lat, cfg.run.n_lon, device=device, dtype=dtype)
     mask_np = np.asarray(land_mask)
@@ -116,10 +127,14 @@ def build_model(cfg: SimConfig, land_mask, base_albedo, friction, elevation=None
             grid.shape, mask_np, cfg.phyto, cfg.ecology, cfg.ocean.H_m, device, dtype)
     if cfg.hydrology.routing_enable and network is not None:
         sub["routing_static"] = build_routing_static(network, grid, dtype)
-    return Model(grid=grid, cfg=cfg, static=static,
-                 n_ocean_substeps=static_substeps(grid, cfg.ocean, cfg.run.dt_seconds),
-                 dt=float(cfg.run.dt_seconds), device=device, dtype=dtype,
-                 generator=torch.Generator(device=device).manual_seed(cfg.run.seed), **sub)
+    model = Model(grid=grid, cfg=cfg, static=static,
+                  n_ocean_substeps=static_substeps(grid, cfg.ocean, cfg.run.dt_seconds),
+                  dt=float(cfg.run.dt_seconds), device=device, dtype=dtype,
+                  generator=torch.Generator(device=device).manual_seed(cfg.run.seed), **sub)
+    if mesh is None:
+        return model
+    from .parallel.mesh import shard_model_statics
+    return shard_model_statics(model, mesh)
 
 
 def init_world(model: Model, t0_seconds: float = 0.0, seed: int = 42) -> WorldState:
@@ -190,6 +205,7 @@ def make_step_fn(model: Model, with_diags: bool = True):
     (``ecology.population.MutationDraws``) or, without them, draws from
     ``model.generator``."""
     grid, cfg, static, dt = model.grid, model.cfg, model.static, model.dt
+    mesh = grid.mesh
     day_s = model.day_seconds
     pcfg, hcfg, ecfg = cfg.physics, cfg.hydrology, cfg.ecology
     a = const.PLANET_RADIUS
@@ -230,7 +246,7 @@ def make_step_fn(model: Model, with_diags: bool = True):
             soil_idx = soil_idx * (~lstate.glacier_mask)
         if eco_on and is_daily:
             eco_state = eco_mod.eco_step_daily(es, eco_state, ecfg, soil_idx, model.generator,
-                                               draws)
+                                               draws, mesh)
             # glacier cells: zero LAI
             eco_state = dataclasses.replace(eco_state, LAI_SK=torch.where(
                 lstate.glacier_mask[None, None], 0.0, eco_state.LAI_SK))
@@ -253,8 +269,9 @@ def make_step_fn(model: Model, with_diags: bool = True):
         if pcfg.p_ref is not None:
             P_ref = torch.full((), pcfg.p_ref, dtype=precip.dtype, device=precip.device)
         else:
-            P_ref = masked_median_of_positive(precip, fallback=1e-6)
-        C_from_P = ph.cloud_from_precip(precip, C_max=pcfg.c_max, P_ref=P_ref, smooth_sigma=1.0)
+            P_ref = masked_median_of_positive(precip, fallback=1e-6, mesh=mesh)
+        C_from_P = ph.cloud_from_precip(precip, C_max=pcfg.c_max, P_ref=P_ref, smooth_sigma=1.0,
+                                        mesh=mesh)
         cloud_source = ph.parameterize_cloud_cover(grid, atmos.T_s, atmos.u, atmos.v)
         tendency = cloud_source * (dt / (6 * 3600.0))
         w_sum = pcfg.w_mem + pcfg.w_p + pcfg.w_src
@@ -271,10 +288,10 @@ def make_step_fn(model: Model, with_diags: bool = True):
         if pcfg.cloud_advect:
             cloud_adv = advect_semilag_multi(cloud[None], atmos.u, atmos.v, dt, a,
                                              grid.dlat_rad, grid.dlon_rad,
-                                             grid.coslat_cap_tiny)[0]
+                                             grid.coslat_cap_tiny, mesh)[0]
             if pcfg.cloud_smooth_sigma > 0.0:
                 cloud_adv = gaussian_filter(cloud_adv, pcfg.cloud_smooth_sigma,
-                                            mode_lat="wrap", mode_lon="wrap")
+                                            mode_lat="wrap", mode_lon="wrap", mesh=mesh)
             cloud = torch.clamp((1.0 - pcfg.cloud_adv_alpha) * cloud
                                 + pcfg.cloud_adv_alpha * cloud_adv, 0.0, 1.0)
         atmos = dataclasses.replace(atmos, cloud_cover=cloud)
@@ -339,7 +356,7 @@ def make_step_fn(model: Model, with_diags: bool = True):
         if eco_on and ecfg.subdaily_enable and ecfg.albedo_couple:
             # the energy accumulates every step; the albedo map refreshes
             # every QD_ECO_SUBSTEP_EVERY_NPHYS steps and is kept between
-            eco_state, alpha_fresh = eco_mod.eco_step_subdaily(es, eco_state, ecfg, isr, dt)
+            eco_state, alpha_fresh = eco_mod.eco_step_subdaily(es, eco_state, ecfg, isr, dt, mesh)
             n_every = max(1, int(ecfg.substep_every_nphys))
             alpha_map = alpha_fresh if (step_idx + 1) % n_every == 0 else alpha_eco_last
             W_LAI = ecfg.lai_albedo_weight
@@ -367,7 +384,7 @@ def make_step_fn(model: Model, with_diags: bool = True):
         atmos, aux = atmos_step(grid, cfg, static, atmos, state.energy, Teq, albedo, isr,
                                 step_idx, dt)
         ediag = (en.energy_diagnostics(grid.area_w, isr, aux["R"], aux["OLR"], aux["SW_sfc"],
-                                       aux["LW_sfc"], aux["SH"], aux["LH"])
+                                       aux["LW_sfc"], aux["SH"], aux["LH"], mesh)
                  if with_diags else None)
 
         # ---- ocean + SST feedback ----
@@ -393,7 +410,7 @@ def make_step_fn(model: Model, with_diags: bool = True):
 
             # greenhouse autotune
             if cfg.energy.autotune and step_idx % max(1, cfg.energy.tune_every) == 0:
-                diag_toa = area_mean(isr - R_ - OLR_, grid.area_w)
+                diag_toa = area_mean(isr - R_ - OLR_, grid.area_w, mesh=mesh)
                 e0, kc = en.autotune_greenhouse(estate.lw_eps0, estate.lw_kc, diag_toa,
                                                 cfg.energy)
                 estate = EnergyState(lw_eps0=e0, lw_kc=kc)
@@ -410,7 +427,7 @@ def make_step_fn(model: Model, with_diags: bool = True):
                 Cs_ocn = cfg.ocean.rho_w * cfg.ocean.cp_w * cfg.run.mld_m
                 aux["aud_overwrite"] = area_mean(
                     torch.where(ocean_open, Cs_ocn * (ocn.sst - atmos.T_s) / dt, 0.0),
-                    grid.area_w)
+                    grid.area_w, mesh=mesh)
             atmos = dataclasses.replace(atmos, T_s=torch.where(ocean_open, ocn.sst, atmos.T_s))
             if phyto_on and cfg.phyto.advection:
                 if share_gather:
@@ -432,7 +449,7 @@ def make_step_fn(model: Model, with_diags: bool = True):
         routing_state = state.routing
         if routing_on:
             routing_state = routing_step(model.routing_static, routing_state, hcfg, R_total,
-                                         dt, precip, E_flux)
+                                         dt, precip, E_flux, mesh)
         lstate = LandState(W_land=W_land, S_snow=S_snow_next, C_snow=C_snow_map,
                            glacier_mask=glacier)
 
@@ -460,20 +477,21 @@ def make_step_fn(model: Model, with_diags: bool = True):
 
         wdiag = hyd.water_closure_means(grid.area_w, atmos.q, cfg.humidity.rho_a,
                                         cfg.humidity.h_mbl, atmos.h_ice, cfg.dynamics.rho_ice,
-                                        W_land, S_snow_next, E_flux, precip, R_total)
+                                        W_land, S_snow_next, E_flux, precip, R_total, mesh)
+        wmean = lambda x, mask=None: area_mean(x, grid.area_w, mask=mask, mesh=mesh)
         diag = {
             "TOA_net": ediag["TOA_net"], "SFC_net": ediag["SFC_net"],
             "ATM_net": ediag["ATM_net"], "OLR_mean": ediag["OLR_mean"],
-            "Ts_mean": area_mean(atmos.T_s, grid.area_w),
+            "Ts_mean": wmean(atmos.T_s),
             "E_mean": wdiag["E_mean"], "P_mean": wdiag["P_mean"], "R_mean": wdiag["R_mean"],
             "total_reservoir_mean": wdiag["total_reservoir_mean"],
             "CWV_mean": wdiag["CWV_mean"], "ICE_mean": wdiag["ICE_mean"],
             "W_land_mean": wdiag["W_land_mean"], "S_snow_mean": wdiag["S_snow_mean"],
-            "LH_mean": area_mean(atmos.LH_last, grid.area_w),
-            "LH_release_mean": area_mean(atmos.LH_release_last, grid.area_w),
-            "u_max": torch.amax(torch.abs(atmos.u)),
-            "v_max": torch.amax(torch.abs(atmos.v)),
-            "Qnet_mean": area_mean(Q_net, grid.area_w, mask=ocean_mask),
+            "LH_mean": wmean(atmos.LH_last),
+            "LH_release_mean": wmean(atmos.LH_release_last),
+            "u_max": gmax(torch.abs(atmos.u), mesh),
+            "v_max": gmax(torch.abs(atmos.v), mesh),
+            "Qnet_mean": wmean(Q_net, ocean_mask),
         }
         if cfg.energy.audit:
             for k in AUDIT_KEYS:
@@ -484,18 +502,18 @@ def make_step_fn(model: Model, with_diags: bool = True):
                 diag[k] = aux[k]
 
         ice_mask_d = (atmos.h_ice > 0.0) & ocean_mask
-        diag["seaice_area_frac"] = area_mean(ice_mask_d.to(atmos.T_s.dtype), grid.area_w)
-        diag["seaice_mean_h"] = (torch.sum(torch.where(ice_mask_d, atmos.h_ice, 0.0))
-                                 / torch.clamp(torch.sum(ice_mask_d), min=1))
+        diag["seaice_area_frac"] = wmean(ice_mask_d.to(atmos.T_s.dtype))
+        diag["seaice_mean_h"] = (gsum(torch.where(ice_mask_d, atmos.h_ice, 0.0), mesh)
+                                 / torch.clamp(gsum(ice_mask_d, mesh), min=1))
         if eco_on:
             lai_tot = torch.sum(eco_state.LAI_SK, dim=(0, 1))
-            land_cnt = torch.clamp(torch.sum(land), min=1)
-            diag["lai_mean"] = torch.sum(torch.where(land, lai_tot, 0.0)) / land_cnt
-            diag["lai_max"] = torch.amax(torch.where(land, lai_tot, 0.0))
+            land_cnt = torch.clamp(gsum(land, mesh), min=1)
+            diag["lai_mean"] = gsum(torch.where(land, lai_tot, 0.0), mesh) / land_cnt
+            diag["lai_max"] = gmax(torch.where(land, lai_tot, 0.0), mesh)
         if phyto_on:
-            diag["chl_mean"] = area_mean(torch.sum(phyto_state.C_phyto, dim=0), grid.area_w)
-            diag["kd490_mean"] = area_mean(phyto_state.Kd_490, grid.area_w)
-            diag["alpha_water_mean"] = area_mean(alpha_water, grid.area_w)
+            diag["chl_mean"] = wmean(torch.sum(phyto_state.C_phyto, dim=0))
+            diag["kd490_mean"] = wmean(phyto_state.Kd_490)
+            diag["alpha_water_mean"] = wmean(alpha_water)
         if ocean_on:
             od = ocean_diagnostics(grid, cfg.ocean, ocn)
             diag["ocean_KE_mean"] = od["KE_mean"]
@@ -507,13 +525,14 @@ def make_step_fn(model: Model, with_diags: bool = True):
                     eff_Q = eff_Q + cfg.ocean.ice_qfac * torch.where(ocean_mask & ice_mask,
                                                                      Q_net, 0.0)
                 polar_o = (torch.abs(grid.lat_mesh) >= cfg.ocean.polar_lat_diag) & ocean_mask
-                wsum_o = torch.sum(wa * ocean_mask) + 1e-15
-                wsum_p = torch.sum(wa * polar_o) + 1e-15
-                diag["oceanE_Q_mean"] = torch.sum(eff_Q * wa) / wsum_o
-                diag["oceanE_Qp_mean"] = torch.sum(torch.where(polar_o, eff_Q, 0.0) * wa) / wsum_p
-                diag["oceanE_sst_mean"] = (torch.sum(torch.where(ocean_mask, ocn.sst, 0.0) * wa)
+                wsum_o = gsum(wa * ocean_mask, mesh) + 1e-15
+                wsum_p = gsum(wa * polar_o, mesh) + 1e-15
+                diag["oceanE_Q_mean"] = gsum(eff_Q * wa, mesh) / wsum_o
+                diag["oceanE_Qp_mean"] = gsum(torch.where(polar_o, eff_Q, 0.0) * wa,
+                                              mesh) / wsum_p
+                diag["oceanE_sst_mean"] = (gsum(torch.where(ocean_mask, ocn.sst, 0.0) * wa, mesh)
                                            / wsum_o)
-                diag["oceanE_sstp_mean"] = (torch.sum(torch.where(polar_o, ocn.sst, 0.0) * wa)
+                diag["oceanE_sstp_mean"] = (gsum(torch.where(polar_o, ocn.sst, 0.0) * wa, mesh)
                                             / wsum_p)
         if routing_on:
             # mass_error = store_out − lake_delta; stranded is the reference's

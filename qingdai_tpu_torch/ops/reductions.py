@@ -5,6 +5,12 @@
 CUDA tensor, through ``MedianPos`` (an ensemble's members in one launch), and
 the sort-based ``masked_median_of_positive_ref`` on a CPU tensor. Both
 compute the exact ``np.median(x[x > 0])``.
+
+On a rank of the longitude mesh (``mesh``) the means take the rank's sums
+and add them across ranks (``parallel.halo``), and the median runs K1
+unchanged on the field gathered whole, on every rank: an order statistic of
+the same values, so it is the unsharded median bit for bit. (The JAX
+package's mesh form reduces bisection counts instead.)
 """
 
 from __future__ import annotations
@@ -12,18 +18,20 @@ from __future__ import annotations
 import torch
 
 from ..kernels import use_kernel
+from ..parallel.halo import all_gather_lon, all_reduce_sum, gsum
 from .members import plain_vjp, refuse_grad, to_front
 
 
-def area_mean(x: torch.Tensor, w: torch.Tensor, mask: torch.Tensor | None = None) -> torch.Tensor:
+def area_mean(x: torch.Tensor, w: torch.Tensor, mask: torch.Tensor | None = None,
+              mesh=None) -> torch.Tensor:
     """Σ x·w / (Σ w + 1e-15); an optional boolean mask folds into the weights."""
     if mask is not None:
         w = w * mask
-    return torch.sum(x * w) / (torch.sum(w) + 1e-15)
+    return gsum(x * w, mesh) / (gsum(w, mesh) + 1e-15)
 
 
 def area_mean_compensated(x: torch.Tensor, w: torch.Tensor,
-                          mask: torch.Tensor | None = None) -> torch.Tensor:
+                          mask: torch.Tensor | None = None, mesh=None) -> torch.Tensor:
     """area_mean with the sums accumulated in float64, cast back to the
     working dtype.
 
@@ -35,8 +43,8 @@ def area_mean_compensated(x: torch.Tensor, w: torch.Tensor,
     x, w = x.to(dtype), w.to(dtype)
     if mask is not None:
         w = w * mask
-    num = torch.sum((x * w).to(torch.float64))
-    den = torch.sum(w.to(torch.float64))
+    num = all_reduce_sum(torch.sum((x * w).to(torch.float64)), mesh)
+    den = all_reduce_sum(torch.sum(w.to(torch.float64)), mesh)
     return (num / (den + 1e-15)).to(dtype)
 
 
@@ -84,9 +92,12 @@ class MedianPos(torch.autograd.Function):
         return median_pos_batched_cuda(to_front(x, in_dims[0]), info.batch_size, fallback), 0
 
 
-def masked_median_of_positive(x: torch.Tensor, fallback: float = 1e-6) -> torch.Tensor:
+def masked_median_of_positive(x: torch.Tensor, fallback: float = 1e-6,
+                              mesh=None) -> torch.Tensor:
     """Median over strictly positive entries of x as a 0-d tensor on x's
-    device; ``fallback`` if none is positive. Never syncs with the host."""
+    device; ``fallback`` if none is positive. Never syncs with the host
+    (on a mesh, the gather does)."""
+    x = all_gather_lon(x, mesh)
     if not use_kernel(x):
         return masked_median_of_positive_ref(x, fallback)
     return MedianPos.apply(x, fallback)

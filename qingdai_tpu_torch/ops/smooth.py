@@ -4,6 +4,11 @@
 Each axis is a pad followed by a sum of shifted slices, taken in the tap order
 of the JAX package. No convolution operator is used, so cuDNN's default TF32
 convolution never enters the step.
+
+On a rank of the longitude mesh the lon pass pads the rank's columns with
+``int(truncate·σ + 0.5)`` columns of its neighbours (``parallel.halo``;
+the lon mode applies only at the global seam) and takes the same taps, so
+the rank's columns are the whole grid's bit for bit.
 """
 
 from __future__ import annotations
@@ -12,6 +17,8 @@ from functools import lru_cache
 
 import numpy as np
 import torch
+
+from ..parallel.halo import pad_lon, single
 
 
 @lru_cache(maxsize=32)
@@ -39,23 +46,31 @@ def _pad1d(F: torch.Tensor, r: int, dim: int, mode: str) -> torch.Tensor:
     return torch.cat([lo, F, hi], dim=dim)
 
 
-def _conv1d(F: torch.Tensor, kernel: tuple, dim: int, mode: str) -> torch.Tensor:
-    r = (len(kernel) - 1) // 2
-    if r == 0:
-        return F
-    Fp = _pad1d(F, r, dim, mode)
-    n = F.shape[dim]
-    out = torch.zeros_like(F)
+def _taps(Fp: torch.Tensor, kernel: tuple, dim: int, n: int) -> torch.Tensor:
+    """Σ_t kernel[t]·Fp[t : t + n] along ``dim`` of the padded field."""
+    out = torch.zeros_like(Fp.narrow(dim, 0, n))
     for t, w in enumerate(kernel):
         out = out + w * Fp.narrow(dim, t, n)
     return out
 
 
+def _conv1d(F: torch.Tensor, kernel: tuple, dim: int, mode: str) -> torch.Tensor:
+    r = (len(kernel) - 1) // 2
+    if r == 0:
+        return F
+    return _taps(_pad1d(F, r, dim, mode), kernel, dim, F.shape[dim])
+
+
 def gaussian_filter(F: torch.Tensor, sigma: float, mode_lat: str = "reflect",
-                    mode_lon: str = "reflect", truncate: float = 4.0) -> torch.Tensor:
-    """Separable Gaussian blur of a [H, W] field; sigma <= 0 returns F."""
+                    mode_lon: str = "reflect", truncate: float = 4.0,
+                    mesh=None) -> torch.Tensor:
+    """Separable Gaussian blur of a [H, W] field; sigma <= 0 returns F. On a
+    rank of ``mesh``, the rank's columns of the whole field's blur."""
     if sigma is None or sigma <= 0.0:
         return F
     k = _gauss_kernel(float(sigma), truncate)
     out = _conv1d(F, k, 0, mode_lat)
-    return _conv1d(out, k, 1, mode_lon)
+    r = (len(k) - 1) // 2
+    if single(mesh) or r == 0:
+        return _conv1d(out, k, 1, mode_lon)
+    return _taps(pad_lon(out, r, mode_lon, mesh), k, 1, out.shape[1])

@@ -6,6 +6,13 @@ the cosφ metric is capped below by the caller's cap map (atmosphere 0.2,
 ocean 0.5). ``hyperdiffuse_multi`` runs kernel K3 (``kernels/hyper4.py``) on a
 CUDA tensor, through ``Hyper4`` (an ensemble's members in the same launches),
 and ``hyperdiffuse_multi_ref`` on a CPU tensor.
+
+On a rank of the longitude mesh (``mesh``) each stencil pads the rank's
+columns with as many of its neighbours' as the chain reaches, computes, and
+crops: one column for ∇², n for n Shapiro passes, 2 a substep for ∇⁴ (K3
+runs unchanged on the padded block, and its own wrap touches only halo
+columns). The owned columns are the whole grid's bit for bit. The zonal FFT
+filter gathers the field, filters and crops, as GSPMD does.
 """
 
 from __future__ import annotations
@@ -14,19 +21,21 @@ import torch
 
 from ..grid import gradient_np
 from ..kernels import use_kernel
+from ..parallel.halo import all_gather_lon, lon_neighbours, pad_lon, single
 from .members import plain_vjp, refuse_grad, to_front
 
 
 def laplacian_sphere(F: torch.Tensor, dlat: float, dlon: float,
-                     coslat: torch.Tensor, a: float) -> torch.Tensor:
+                     coslat: torch.Tensor, a: float, mesh=None) -> torch.Tensor:
     """(1/cos) ∂/∂φ (cos ∂F/∂φ) + (1/cos²) ∂²F/∂λ², all divided by a².
 
     Works on [H, W] or on a leading batch axis ([M, H, W] with coslat
     broadcasting against it)."""
-    lat, lon = F.dim() - 2, F.dim() - 1
+    lat = F.dim() - 2
     dF_dphi = gradient_np(F, dlat, lat)
     term_phi = gradient_np(coslat * dF_dphi, dlat, lat) / coslat
-    d2 = (torch.roll(F, -1, lon) - 2.0 * F + torch.roll(F, 1, lon)) / (dlon * dlon)
+    east, west = lon_neighbours(F, mesh)
+    d2 = (east - 2.0 * F + west) / (dlon * dlon)
     return (term_phi + d2 / (coslat * coslat)) / (a * a)
 
 
@@ -45,10 +54,43 @@ def hyperdiffuse(F: torch.Tensor, k4, dt: float, n_substeps: int, dlat: float,
 
 def hyperdiffuse_multi_ref(F: torch.Tensor, k4_stack: torch.Tensor, dt: float,
                            n_substeps: int, dlat: float, dlon: float,
-                           coslat: torch.Tensor, a: float) -> torch.Tensor:
+                           coslat: torch.Tensor, a: float, mesh=None) -> torch.Tensor:
     """Plain version of kernel K3: hyperdiffusion of stacked fields [M, H, W];
-    ``k4_stack`` broadcasts against [M, H, W], ``coslat`` is [H, W]."""
+    ``k4_stack`` broadcasts against [M, H, W], ``coslat`` is [H, W]. On a
+    rank of ``mesh``, on the padded block as ``hyperdiffuse_multi``."""
+    if not single(mesh):
+        return _on_padded(hyperdiffuse_multi_ref, F, k4_stack, dt, n_substeps, dlat, dlon,
+                          coslat, a, mesh)
     return hyperdiffuse(F, k4_stack, dt, n_substeps, dlat, dlon, coslat[None], a)
+
+
+def _static_block(x, w, h, mesh):
+    """A static operand of the padded block of ``h`` columns: ``x`` as it
+    broadcasts (a trailing axis of 1), cropped if it holds more columns than
+    the rank's (``Grid.padded``'s maps: no exchange), else exchanged."""
+    n = x.shape[-1]
+    if n == 1:
+        return x
+    if n == w:
+        return pad_lon(x, h, "wrap", mesh)
+    p = (n - w) // 2
+    if n != w + 2 * p or p < h:
+        raise ValueError(f"a static operand of {n} columns is neither the rank's {w} nor "
+                         f"padded by at least {h}")
+    return x[..., p - h:p + w + h].contiguous()
+
+
+def _on_padded(fn, F, k4_stack, dt, n_substeps, dlat, dlon, coslat, a, mesh):
+    """``fn`` (K3 or its plain version) on the rank's columns padded by 2 a
+    substep, the owned columns cropped: the ∇⁴ chain reaches 2 columns a
+    substep, so the pad's local wrap touches only halo columns. ``k4_stack``
+    and ``coslat`` hold the rank's columns or more (``_static_block``)."""
+    w, h = F.shape[-1], 2 * max(1, int(n_substeps))
+    if k4_stack.shape[-1] == w:
+        k4_stack = torch.broadcast_to(k4_stack, F.shape).contiguous()
+    out = fn(pad_lon(F, h, "wrap", mesh), _static_block(k4_stack, w, h, mesh), dt, n_substeps,
+             dlat, dlon, _static_block(coslat, w, h, mesh), a)
+    return out[..., h:h + w].contiguous()
 
 
 class Hyper4(torch.autograd.Function):
@@ -92,20 +134,30 @@ class Hyper4(torch.autograd.Function):
 
 def hyperdiffuse_multi(F: torch.Tensor, k4_stack: torch.Tensor, dt: float,
                        n_substeps: int, dlat: float, dlon: float,
-                       coslat: torch.Tensor, a: float) -> torch.Tensor:
-    """Hyperdiffusion of stacked fields [M, H, W] in one pass."""
+                       coslat: torch.Tensor, a: float, mesh=None) -> torch.Tensor:
+    """Hyperdiffusion of stacked fields [M, H, W] in one pass. On a rank of
+    ``mesh``, the rank's columns padded by 2 a substep (``kernels/hyper4.HALO``
+    columns), K3 or its plain version unchanged on the padded block, and
+    the owned columns cropped."""
+    if not single(mesh):
+        return _on_padded(hyperdiffuse_multi, F, k4_stack, dt, n_substeps, dlat, dlon, coslat,
+                          a, mesh)
     if not use_kernel(F):
         return hyperdiffuse_multi_ref(F, k4_stack, dt, n_substeps, dlat, dlon, coslat, a)
     return Hyper4.apply(F, k4_stack, dt, n_substeps, dlat, dlon, coslat, a)
 
 
-def shapiro_filter(F: torch.Tensor, n: int = 2) -> torch.Tensor:
+def shapiro_filter(F: torch.Tensor, n: int = 2, mesh=None) -> torch.Tensor:
     """Separable 1-2-1 smoothing applied n times over the last two axes of
     a [H, W] field or an [M, H, W] stack: longitude wrapped, latitude
     nearest."""
     lat, lon = F.dim() - 2, F.dim() - 1
+    n = max(1, int(n))
+    if not single(mesh):
+        w = F.shape[-1]
+        return shapiro_filter(pad_lon(F, n, "wrap", mesh), n)[..., n:n + w].contiguous()
     out = F
-    for _ in range(max(1, int(n))):
+    for _ in range(n):
         out = 0.25 * torch.roll(out, 1, lon) + 0.5 * out + 0.25 * torch.roll(out, -1, lon)
         H = out.shape[lat]
         up = torch.cat([out.narrow(lat, 0, 1), out.narrow(lat, 0, H - 1)], lat)
@@ -119,10 +171,15 @@ shapiro_filter_multi = shapiro_filter
 
 
 def spectral_zonal_filter(F: torch.Tensor, n_lon: int, cutoff: float = 0.75,
-                          damp: float = 0.5) -> torch.Tensor:
+                          damp: float = 0.5, mesh=None) -> torch.Tensor:
     """Zonal-FFT damping: wavenumbers k ≥ cutoff·k_Nyquist scaled by (1 − damp)."""
     if damp <= 0.0 or cutoff <= 0.0:
         return F
+    if not single(mesh):
+        w = F.shape[-1]
+        lon0 = mesh.rank * w
+        return spectral_zonal_filter(all_gather_lon(F, mesh), n_lon, cutoff,
+                                     damp)[..., lon0:lon0 + w].contiguous()
     fft = torch.fft.rfft(F, dim=1)
     bins = fft.shape[1]
     if bins <= 1:

@@ -169,9 +169,10 @@ def integrate_atmos_energy_height(h, SW_atm, LW_atm, SH, LH_release, dt,
     return h + weight * (F_atm / denom) * dt
 
 
-def energy_diagnostics(area_w, I, R, OLR, SW_sfc, LW_sfc, SH, LH):
-    """Area-weighted TOA/SFC/ATM budget scalars with float64 accumulation."""
-    wm = lambda x: area_mean_compensated(x, area_w)
+def energy_diagnostics(area_w, I, R, OLR, SW_sfc, LW_sfc, SH, LH, mesh=None):
+    """Area-weighted TOA/SFC/ATM budget scalars with float64 accumulation
+    (on a mesh, over the whole field)."""
+    wm = lambda x: area_mean_compensated(x, area_w, mesh=mesh)
     toa = wm(I - R - OLR)
     sfc = wm(SW_sfc - LW_sfc - SH - LH)
     return {

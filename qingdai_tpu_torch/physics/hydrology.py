@@ -52,10 +52,10 @@ def update_land_bucket(W_land, P_in, E_land, cfg: HydrologyConfig, dt):
 
 
 def water_closure_means(area_w, q, rho_a, h_mbl, h_ice, rho_i, W_land, S_snow,
-                        E_flux, P_flux, R_flux):
+                        E_flux, P_flux, R_flux, mesh=None):
     """Area-weighted reservoir and flux means for the water-closure
     diagnostic, accumulated in float64."""
-    wm = lambda x: area_mean_compensated(x, area_w)
+    wm = lambda x: area_mean_compensated(x, area_w, mesh=mesh)
     CWV_mean = wm(rho_a * h_mbl * q)
     ICE_mean = wm(rho_i * h_ice)
     W_mean = wm(W_land)

@@ -46,6 +46,7 @@ import torch
 from .config import HydrologyConfig
 from .grid import Grid
 from .ops.scatter import unique_rounds
+from .parallel.halo import all_gather_lon
 from .state import round_to
 
 # effective-downstream sentinel codes
@@ -309,9 +310,15 @@ route_event.events = 0
 
 
 def routing_step(rs: RoutingStatic, state: RoutingState, cfg: HydrologyConfig, R_land_flux,
-                 dt: float, precip_flux, evap_flux) -> RoutingState:
+                 dt: float, precip_flux, evap_flux, mesh=None) -> RoutingState:
     """Accumulate runoff mass; once Σdt reaches dt_hydro, route it
-    (reference routing.py:211-335). The firing test is on host numbers."""
+    (reference routing.py:211-335). The firing test is on host numbers.
+
+    On a rank of the longitude mesh (``mesh``) the accumulation stays in the
+    rank's columns; rivers form one graph across ranks, so the event gathers
+    the runoff buffer (and P − E for the lakes) whole on every rank and runs
+    unchanged on the whole field, and each rank keeps its own columns of the
+    buffer (the JAX package's routing.py:306-309)."""
     dtype = state.buffer_kg.dtype
     dt_hydro = cfg.dt_hydro_hours * 3600.0
     buffer_kg = state.buffer_kg + torch.where(rs.land, R_land_flux * rs.cell_area * dt, 0.0)
@@ -321,11 +328,12 @@ def routing_step(rs: RoutingStatic, state: RoutingState, cfg: HydrologyConfig, R
 
     event_dt = max(t_accum, 1e-9)
     flow_accum, (mass_in, ocean_out, store_out), lake_vol = route_event(
-        rs, buffer_kg.reshape(-1), state.lake_volume_kg)
+        rs, all_gather_lon(buffer_kg, mesh).reshape(-1), state.lake_volume_kg)
     # lake P−E volume update over the event window (reference routing.py:305-318)
     lake_delta = torch.zeros((), dtype=torch.float64, device=buffer_kg.device)
     if rs.n_lakes > 0 and cfg.treat_lake_as_water:
-        net = (precip_flux.reshape(-1) - evap_flux.reshape(-1)) * rs.cell_area_flat * t_accum
+        pe = all_gather_lon(torch.stack([precip_flux, evap_flux]), mesh)
+        net = (pe[0].reshape(-1) - pe[1].reshape(-1)) * rs.cell_area_flat * t_accum
         lake_delta = _sum64(torch.where(rs.lake_mask_flat, net, 0.0))
         lake_vol = lake_vol + rs.lake_area_frac * lake_delta.to(dtype)
     # the reference's closure_err = input − (ocean + lakeΔ + residual), with

@@ -50,7 +50,9 @@ def test_port_sources_import_no_jax():
             "qingdai_tpu_torch/calibrate_joint.py", "qingdai_tpu_torch/assim.py",
             "qingdai_tpu_torch/assimilate.py", "qingdai_tpu_torch/spinup.py",
             "qingdai_tpu_torch/regrid_restart.py", "qingdai_tpu_torch/ecology/diversity.py",
-            "qingdai_tpu_torch/viz/plots.py", "qingdai_tpu_torch/viz/ploter.py"} <= names
+            "qingdai_tpu_torch/viz/plots.py", "qingdai_tpu_torch/viz/ploter.py",
+            "qingdai_tpu_torch/parallel/__init__.py", "qingdai_tpu_torch/parallel/mesh.py",
+            "qingdai_tpu_torch/parallel/halo.py", "qingdai_tpu_torch/parallel/dryrun.py"} <= names
     bad = [(p.relative_to(REPO).as_posix(), m) for p in _port_sources()
            for m in _absolute_imports(p) if m.split(".")[0] in FORBIDDEN]
     assert bad == []
@@ -112,6 +114,56 @@ def test_entry_points_default_to_the_card(monkeypatch):
         model.build_model(mdl.cfg, mask, mask * 0.3, mask * 1e-6)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         convert.world_from_numpy(st)
+
+
+def test_one_rank_mesh_calls_no_collective(monkeypatch):
+    """A mesh of one rank (no process group) calls no collective:
+    ``torch.distributed`` refuses a send to its own rank. Its sharded step
+    equals the unsharded step bit for bit."""
+    import torch.distributed as dist
+
+    from qingdai_tpu_torch.parallel import halo
+    from qingdai_tpu_torch.parallel.mesh import make_mesh, shard_model_statics, shard_state
+
+    def refuse(*a, **k):
+        raise AssertionError("a one-rank mesh called a collective")
+
+    for name in ("all_reduce", "all_gather", "batch_isend_irecv", "isend", "irecv", "barrier"):
+        monkeypatch.setattr(dist, name, refuse)
+    mesh = make_mesh("gloo", "cpu")
+    assert mesh.n == 1 and mesh.group is None
+    mdl, st = entry.build_world(19, 36, device="cpu", dtype=torch.float64)
+    x = torch.arange(19 * 36, dtype=torch.float64).reshape(19, 36)
+    for mode in ("wrap", "reflect", "nearest"):
+        assert halo.pad_lon(x, 3, mode, mesh).shape == (19, 42)
+    assert torch.equal(halo.all_gather_lon(x, mesh), x)
+    assert torch.equal(halo.gsum(x, mesh), torch.sum(x))
+    one = model.make_step_fn(shard_model_statics(mdl, mesh))(shard_state(st, mesh, 36))
+    ref = model.make_step_fn(mdl)(st)
+    got, want = convert.world_to_numpy(one[0]), convert.world_to_numpy(ref[0])
+    for k in want:
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+    assert mesh.stats["collectives"] == 0
+
+
+def test_nccl_needs_a_card_a_rank(monkeypatch):
+    """More NCCL ranks than cards raise and name the gloo backend; nothing
+    switches backend by itself, and the mesh's entry points default to the
+    card."""
+    from qingdai_tpu_torch.parallel import dryrun
+    from qingdai_tpu_torch.parallel.mesh import make_mesh
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(RuntimeError, match="backend='gloo'"):
+        make_mesh("nccl", "cuda", rank=0, world_size=2, init_method="file:///nonexistent")
+    with pytest.raises(ValueError, match="gloo"):
+        make_mesh("nccl", "cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_mesh("gloo")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        dryrun.main(["--nproc", "2", "--backend", "gloo"])
 
 
 def _members(module):
