@@ -46,7 +46,8 @@ Phases, each of which raises on failure (exit code non-zero):
      forms never, every member must be finite and physical; ms/step, per
      member, member·sim-years/hour, device launches and device ms a step
      (a profiled routing period); member 0 of B = 8 against the single
-     planet over the same steps, within ``ENSEMBLE_F32_REL``;
+     planet over the same steps: bit for bit (members 1..7, perturbed, must
+     each lie beyond ``ENSEMBLE_F32_REL``);
   5. one float64 step of the main path on the card against the same step on
      the CPU from the same warm state, with the routing clock one step
      before an event, so the compared step routes;
@@ -62,7 +63,8 @@ Phases, each of which raises on failure (exit code non-zero):
   7. the adjoint on the card (``qingdai_tpu_torch.adjoint``). 7.1: each
      kernel's backward (its plain version's VJP): ``gradcheck`` in float64
      on a 19×36 grid (every input, relative perturbations, K4 two
-     substeps), and at the main path's shapes the Function's VJP against
+     substeps; two backwards of one cotangent must repeat to the bit,
+     ``nondet_tol`` 0), and at the main path's shapes the Function's VJP against
      the plain version's (float32 within 1e-5, float64 1e-12 of the largest
      |grad|), with each backward's device ms a call beside the kernel's
      forward and its bound. 7.2: the flagship planet warmed one planetary
@@ -71,7 +73,8 @@ Phases, each of which raises on failure (exit code non-zero):
      > 0 and the maps finite, K1–K4 launched 2 × (3, 3, 1, 1) times a step
      (forward and the checkpoint's recompute); ms per window-step of the
      value and of the gradient, their ratio, peak device memory, device ms
-     and launches a window-step and the top kernels by device time. 7.3:
+     and launches a window-step and the top kernels by device time; the
+     two timed gradient calls must equal the first bit for bit. 7.3:
      the same window in float64, printed with the pole rows' share of the
      initial-T_s map, and dJ/d gh_factor in float32 against float64 on 12
      steps within 2e-2. 7.4: a 6-step float64 window against its central
@@ -164,6 +167,21 @@ Phases, each of which raises on failure (exit code non-zero):
      and its leaf), and one LETKF analysis of the gathered ensemble against
      the unsharded one. ``python3 chip_smoke.py --phase 10`` builds the
      kernels and runs phase 10 alone, without the record lines.
+ 11. the offline tools that compute on tensors, on the card. 11.1:
+     ``verify_calculation`` (its three checks must pass) and ``total_flux``
+     over 4096 times of a year in float64 against the CPU (1e-13 relative).
+     11.2: ``insolation_components`` at 181×360, float32 and float64, at
+     t = 0 and 1.234e7 s, against the CPU in float64 (1e-5 and 1e-12 of the
+     largest value). 11.3: ``diag_isr`` (its ``[ISR]`` line; no panels
+     without matplotlib) and its numbers against the CPU's. 11.4:
+     ``validate_hydro_routing`` at 181×360, float32 (closure, inflow, the
+     network's host build seconds) and float64 against the CPU (1e-12).
+     11.5: the plant pool (``ecology.plant``) of 1e6 plants, two days of two
+     substeps, float64 against the CPU (states, ages and seeds equal, floats
+     within 1e-12), and device ms a daily step and a substep in float32 and
+     float64. Each number beside the card's name and power limit. ``python3
+     chip_smoke.py --phase 11`` builds the kernels and runs phase 11 alone,
+     without the record lines.
 The line before the last is the kernels' JSON record, the four single forms
 (launches from phase 4's main path), the four batched forms (launches from
 phase 4b's day at B = 8) and the sharded forms of K2 and K4 (launches from
@@ -1129,7 +1147,9 @@ def phase4b_ensemble(label):
     the physical gates; then a profiled window of one routing period. Member
     0 of B = 8 against the single planet over the same steps, within
     ``ENSEMBLE_F32_REL``, and as its control members 1..7, each of which
-    must lie beyond that bound. Returns (the timed day's launch counts at B = 8, a
+    must lie beyond that bound; member 0 must equal the single planet bit
+    for bit (each of the step's reductions adds in one order whatever the
+    member count: ``ops.reductions.sum_fixed``). Returns (the timed day's launch counts at B = 8, a
     row of numbers per B)."""
     import warnings
 
@@ -1221,9 +1241,9 @@ def phase4b_ensemble(label):
           f"rows: member 0 {worst[0][1]:.3e} ({worst[0][0]}; bit-equal: {same}); the control, "
           f"members 1..{len(worst) - 1}: " + ", ".join(f"{e:.3e} ({k})" for k, e in worst[1:])
           + f"; bound {ENSEMBLE_F32_REL}")
-    if not worst[0][1] <= ENSEMBLE_F32_REL:
-        raise AssertionError(f"ensemble member 0 differs from the single planet: "
-                             f"{worst[0][0]} {worst[0][1]} > {ENSEMBLE_F32_REL}")
+    if not same:
+        raise AssertionError(f"ensemble member 0 is not bit-equal to the single planet: "
+                             f"{worst[0][0]} {worst[0][1]} (bound {ENSEMBLE_F32_REL})")
     if not min(e for _, e in worst[1:]) > ENSEMBLE_F32_REL:
         raise AssertionError("a perturbed member lies within ENSEMBLE_F32_REL of the single "
                              "planet: the bound cannot tell member 0 from another member")
@@ -1299,12 +1319,13 @@ def phase5_cpu_reference(st, dev):
 
 
 # member 0 of an ensemble against the single planet in float32 over the same
-# steps: each leaf within this share of its largest |value|, the pole rows
-# left out (phase 5). Batched reductions may add in another order than the
-# single planet's, an ulp apart, and the step's dynamics grow that. Every
-# perturbed member (0.01 K) must lie beyond it, so that the check tells
-# member 0 from its neighbours; the CPU tests hold the same bound
-# (tests/test_torch_ensemble.py).
+# steps: on the card bit for bit; this share of each leaf's largest |value|
+# (the pole rows left out, phase 5) is what every perturbed member (0.01 K)
+# must lie beyond, so that the check tells member 0 from its neighbours. The
+# CPU tests hold member 0 within it (tests/test_torch_ensemble.py): on the
+# CPU a transcendental's vectorised and scalar loops round apart, and which
+# elements take which loop depends on the tensor's size
+# (scripts/bisect_member0_torch.py).
 ENSEMBLE_F32_REL = 1e-5
 
 
@@ -1423,9 +1444,9 @@ ADJ_FD_STEPS = 6        # the float64 window held against FD and the CPU
 ADJ_FD_EPS = 1e-6
 GRAD_TOL = {torch.float64: 1e-12, torch.float32: 1e-5}
 GRADCHECK_SHAPE = (19, 36)
-# the plain gather's backward (index_select's) adds with atomics on the card,
-# so two backwards of one cotangent may differ in the last bits
-GRADCHECK_NONDET = 1e-10
+# two backwards of one cotangent must repeat to the bit: the plain gather's
+# backward adds in a fixed order (ops.scatter.gather_fixed), not with atomics
+GRADCHECK_NONDET = 0.0
 
 
 def grad_cases(dev, dtype, shape=None):
@@ -1614,10 +1635,18 @@ def phase7_adjoint(dev, label, rec):
         torch.cuda.synchronize()
         return (time.perf_counter() - t) * 1e3 / ADJ_STEPS
 
-    times = {"value": [], "value_and_grad": []}
+    # the timed calls repeat the first: each gradient must equal its bits
+    times, again = {"value": [], "value_and_grad": []}, []
     for _ in range(2):
         times["value"].append(timed(lambda: val(params, flagship)))
-        times["value_and_grad"].append(timed(lambda: vg(params, flagship)))
+        times["value_and_grad"].append(timed(lambda: again.append(vg(params, flagship)[1])))
+    repeat = {k: max(float((h[k] - g[k]).abs().max()) for h in again) for k in g}
+    print(f"phase 7: two more identical gradient calls against the first, largest "
+          f"|difference|: " + ", ".join(f"{k} {v:.3e}" for k, v in repeat.items())
+          + f" [{label}]")
+    if any(v != 0.0 for v in repeat.values()):
+        raise AssertionError(f"phase 7: identical gradient calls differ: {repeat}")
+    del again
     v_ms, vg_ms = (statistics.median(times[k]) for k in ("value", "value_and_grad"))
     prof = {k: profile_steps(fn, ADJ_STEPS, f"the adjoint's {k}")
             for k, fn in (("value", lambda: val(params, flagship)),
@@ -3018,13 +3047,222 @@ def phase10_parallel(dev, label, rate, rec):
     return {name: counts_2[name] for name, *_ in SHARDED_KERNELS}
 
 
+# ------------------------------------------------------------- phase 11
+ASTRO_TIMES = 4096              # verify_calculation's year of times
+PLANTS = 1_000_000              # the plant pool of 11.5
+PLANT_BANDS, PLANT_DAYS, PLANT_SUBSTEPS = 8, 2, 2
+INSOLATION_TOL = {torch.float32: 1e-5, torch.float64: 1e-12}
+
+
+def rel_max(got: torch.Tensor, want: torch.Tensor) -> float:
+    """max |got − want| over max |want|, in float64 on the CPU."""
+    got, want = got.detach().cpu().double(), want.detach().cpu().double()
+    return float((got - want).abs().max()) / max(float(want.abs().max()), 1e-300)
+
+
+def plant_inputs(seed: int, n: int, dtype, device):
+    """The pool's seeded start (every FSM state present) and each day's
+    forcing, made on the CPU from a torch generator and moved to ``device``."""
+    gen = torch.Generator().manual_seed(seed)
+
+    def u(lo, hi, *shape):
+        return (lo + (hi - lo) * torch.rand(*shape, generator=gen, dtype=torch.float64)).to(
+            device=device, dtype=dtype)
+
+    start = {"state": torch.randint(0, 5, (n,), generator=gen).to(device, torch.int8),
+             "age_days": torch.randint(0, 12, (n,), generator=gen).to(device, torch.int32),
+             "biomass_root": u(0, 2, n), "biomass_stem": u(0, 2, n),
+             "biomass_leaf": u(0, 1, n), "energy_storage": u(0, 3, n),
+             "gdd_accum": u(0, 30, n), "water_stress_days": u(0, 3, n),
+             # leaf areas from 0.05: below that f_LAI = 1 − exp(−k·LA) keeps
+             # only ~ulp/(k·LA) of relative precision, and one ulp between
+             # the card's exp and the CPU's grows with the plant (ROADMAP.md
+             # Queue 3, the differences to allow for)
+             "leaf_area": u(0.05, 0.4, n), "E_day_buffer": u(0, 1, n),
+             "leaf_area_per_energy": u(0.05, 0.5, n), "drought_tolerance": u(0.2, 0.6, n),
+             "gdd_germinate": u(5, 40, n), "lifespan_days": u(4, 20, n)}
+    days = [{"I": [u(0, 2, n, PLANT_BANDS) for _ in range(PLANT_SUBSTEPS)],
+             "A": [u(-0.1, 1.2, n, PLANT_BANDS) for _ in range(PLANT_SUBSTEPS)],
+             "swi_sub": [u(0.2, 1, n) for _ in range(PLANT_SUBSTEPS)],
+             "dl": u(5, 20, PLANT_BANDS), "Ts": u(260, 300, n), "swi": u(0, 1, n)}
+            for _ in range(PLANT_DAYS)]
+    return start, days
+
+
+def plant_run(device, dtype):
+    """The pool of 11.5 from ``plant_inputs``: (the pool after each day, the
+    seeds of each day, the first day's pool and forcing, the largest day's
+    energy of a plant)."""
+    import dataclasses
+
+    from qingdai_tpu_torch.ecology import genes, plant
+    start, days = plant_inputs(11, PLANTS, dtype, device)
+    p = dataclasses.replace(plant.init_plant_pool(PLANTS, genes.Genes.from_env(), dtype=dtype,
+                                                  device=device), **start)
+    first = (p, days[0])
+    pools, seeds, energy = [], [], 0.0
+    for day in days:
+        for k in range(PLANT_SUBSTEPS):
+            p = plant.pool_substep_bands(p, day["I"][k], day["A"][k], 3600.0, day["dl"],
+                                         day["swi_sub"][k])
+        energy = max(energy, float(p.E_day_buffer.abs().max()))
+        p, s = plant.pool_step_daily(p, day["Ts"], 12.0, day["swi"])
+        pools.append(p)
+        seeds.append(s)
+    return pools, seeds, first, energy
+
+
+def phase11_tools(dev, label):
+    """11: the time-based astronomy, its CLIs, the routing validator and the
+    plant pool on the card (module docstring, phase 11)."""
+    import contextlib
+    import dataclasses
+    import io
+    import tempfile
+
+    from qingdai_tpu_torch import diag_isr, validate_hydro_routing, verify_calculation
+    from qingdai_tpu_torch.ecology import plant
+    from qingdai_tpu_torch.grid import make_grid
+    from qingdai_tpu_torch.physics import forcing, orbital
+
+    started = time.perf_counter()
+    # 11.1: verify_calculation on the card, and the flux over a year against
+    # the CPU's
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = verify_calculation.main(["--device", dev.type])
+    lines = out.getvalue().splitlines()
+    if rc != 0 or lines[-1] != "[Verify] PASS":
+        raise AssertionError(f"phase 11: verify_calculation exited {rc}: {lines}")
+    ts = np.linspace(0, orbital.T_PLANET, ASTRO_TIMES)
+    S_card, S_cpu = orbital.total_flux(ts, dev), orbital.total_flux(ts, "cpu")
+    err = rel_max(S_card, S_cpu)
+    print(f"phase 11.1: verify_calculation on {dev}: " + " | ".join(lines)
+          + f"; total_flux over {ASTRO_TIMES} times float64 card against CPU {err:.3e} "
+          f"(bound 1e-13) [{label}]")
+    if not err <= 1e-13:
+        raise AssertionError(f"phase 11: total_flux on the card differs from the CPU by {err}")
+
+    # 11.2: insolation at 181×360 on the card in float32 and float64 against
+    # the CPU in float64, at t = 0 and at t ≈ 1e7 s
+    g64 = make_grid(H, W, device="cpu", dtype=torch.float64)
+    errs = {}
+    for dtype in (torch.float32, torch.float64):
+        g = make_grid(H, W, device=dev, dtype=dtype)
+        for t in (0.0, 1.234e7):
+            for c, (a, b) in enumerate(zip(forcing.insolation_components(g, t),
+                                           forcing.insolation_components(g64, t))):
+                if a.dtype != dtype:
+                    raise AssertionError(f"phase 11: insolation in {a.dtype} on a {dtype} grid")
+                errs[(str(dtype).split(".")[-1], t, "AB"[c])] = rel_max(a, b)
+    worst = {d: max(e for k, e in errs.items() if k[0] == d) for d in ("float32", "float64")}
+    print(f"phase 11.2: insolation_components {H}x{W} on the card against the CPU float64 "
+          f"(t = 0 and 1.234e7 s, both stars), max|diff|/max: float32 {worst['float32']:.3e} "
+          f"(bound 1e-5), float64 {worst['float64']:.3e} (bound 1e-12) [{label}]")
+    if not (worst["float32"] <= INSOLATION_TOL[torch.float32]
+            and worst["float64"] <= INSOLATION_TOL[torch.float64]):
+        raise AssertionError(f"phase 11: insolation on the card against the CPU {errs}")
+
+    # 11.3: diag_isr on the card (no matplotlib there: the [ISR] line and one more)
+    with tempfile.TemporaryDirectory() as tmp:
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = diag_isr.main(["--nlat", str(H), "--nlon", str(W), "--t-days", "100",
+                                "--out", tmp, "--device", dev.type])
+        lines = out.getvalue().splitlines()
+    _, _, r_card = diag_isr.isr_report(make_grid(H, W, device=dev, dtype=torch.float64), 100.0)
+    _, _, r_cpu = diag_isr.isr_report(g64, 100.0)
+    if rc != 0 or not lines[0].startswith("[ISR] t=100.00 d") or not same_report(r_card, r_cpu):
+        raise AssertionError(f"phase 11: diag_isr {rc} {lines}; card {r_card}, CPU {r_cpu}")
+    print(f"phase 11.3: diag_isr on the card: " + " | ".join(lines)
+          + f"; its float64 numbers against the CPU's: the same subsolar cells, maxima within "
+          f"1e-12, separation {r_card['separation_deg']:.9f} against "
+          f"{r_cpu['separation_deg']:.9f} degrees [{label}]")
+
+    # 11.4: the routing validator at 181×360 on the card (float32, as its CLI
+    # runs), and float64 against the CPU
+    t0 = time.perf_counter()
+    r32 = validate_hydro_routing.validate(H, W, device=dev, dtype=torch.float32)
+    wall = time.perf_counter() - t0
+    r64 = validate_hydro_routing.validate(H, W, device=dev, dtype=torch.float64)
+    rc64 = validate_hydro_routing.validate(H, W, device="cpu", dtype=torch.float64)
+    inflow_err = abs(r64["ocean_inflow_kgps"] - rc64["ocean_inflow_kgps"]) / rc64[
+        "ocean_inflow_kgps"]
+    print(f"phase 11.4: validate_hydro_routing {H}x{W} on the card float32: "
+          f"{r32['violations']} ocean-sink violations, ocean inflow "
+          f"{r32['ocean_inflow_kgps']:.6e} kg/s, closure relative error {r32['rel_err']:.3e}, "
+          f"network build {r32['build_s']:.3f} s (host), the whole check {wall:.3f} s wall; "
+          f"float64 inflow against the CPU's {inflow_err:.3e} (bound 1e-12), closure "
+          f"{r64['rel_err']:.3e} [{label}]")
+    if not (r32["ok"] and r64["ok"] and inflow_err <= 1e-12):
+        raise AssertionError(f"phase 11: routing validator {r32} {r64} {rc64}")
+
+    # 11.5: the plant pool of 1e6 plants on the card against the CPU in
+    # float64 (two days of two substeps and a daily step), and device ms a
+    # daily step and a substep in float32 and float64
+    card, seeds_card, first, _ = plant_run(dev, torch.float64)
+    cpu, seeds_cpu, _, energy = plant_run("cpu", torch.float64)
+    errs = {}
+    for a, b, sa, sb in zip(card, cpu, seeds_card, seeds_cpu):
+        for f in dataclasses.fields(a):
+            x, y = getattr(a, f.name), getattr(b, f.name)
+            if x.dtype in (torch.int8, torch.int32):
+                if not torch.equal(x.cpu(), y):
+                    raise AssertionError(f"phase 11: plant pool {f.name} differs on the card")
+                continue
+            # the bank keeps the rounding of a day's energy, summed over the
+            # bands in the card's order, once the seeds' whole units leave it
+            scale = max(energy, float(y.abs().max())) if f.name == "energy_storage" else None
+            err = (float((x.cpu() - y).abs().max()) / scale if scale else rel_max(x, y))
+            errs[f.name] = max(errs.get(f.name, 0.0), err)
+        if not torch.equal(sa.cpu(), sb):
+            raise AssertionError("phase 11: the plant pool's seeds differ on the card")
+    field = max(errs, key=errs.get)
+    worst = errs[field]
+    states = torch.bincount(card[-1].state.long(), minlength=5).tolist()
+    times = {}
+    for dtype in (torch.float32, torch.float64):
+        p, day = first
+        if dtype != torch.float64:
+            p = dataclasses.replace(p, **{f.name: getattr(p, f.name).to(dtype)
+                                          for f in dataclasses.fields(p)
+                                          if getattr(p, f.name).is_floating_point()})
+            day = {k: [x.to(dtype) for x in v] if isinstance(v, list) else v.to(dtype)
+                   for k, v in day.items()}
+        times[dtype] = (
+            device_ms(lambda: plant.pool_step_daily(p, day["Ts"], 12.0, day["swi"]),
+                      what=f"pool_step_daily {dtype}"),
+            device_ms(lambda: plant.pool_substep_bands(p, day["I"][0], day["A"][0], 3600.0,
+                                                       day["dl"], day["swi_sub"][0]),
+                      what=f"pool_substep_bands {dtype}"))
+    print(f"phase 11.5: plant pool of {PLANTS} plants, {PLANT_BANDS} bands, {PLANT_DAYS} days of "
+          f"{PLANT_SUBSTEPS} substeps, float64 card against CPU: states, ages and seeds equal, "
+          f"floats max|diff|/max {worst:.3e} ({field}; bound 1e-12); states at the end "
+          f"{states}; device ms a daily step / a substep: float32 {times[torch.float32][0]:.5f} / "
+          f"{times[torch.float32][1]:.5f}, float64 {times[torch.float64][0]:.5f} / "
+          f"{times[torch.float64][1]:.5f} [{label}]")
+    if not worst <= 1e-12:
+        raise AssertionError(f"phase 11: the plant pool on the card differs by {worst}")
+    print(f"phase 11: {time.perf_counter() - started:.1f} s", flush=True)
+
+
+def same_report(a: dict, b: dict) -> bool:
+    """diag_isr's numbers on two devices: the same subsolar cells, the maxima
+    within 1e-12 relative, the separation within 1e-6 degrees (an arccos
+    near 0 magnifies the last bits)."""
+    return (set(a) == set(b)
+            and all(a[k] == b[k] for k in ("lat_A", "lon_A", "lat_B", "lon_B"))
+            and all(abs(a[k] - b[k]) <= 1e-12 * abs(b[k]) for k in ("max_A", "max_B"))
+            and abs(a["separation_deg"] - b["separation_deg"]) <= 1e-6)
+
+
 def main(argv=None):
     argv = sys.argv[1:] if argv is None else argv
-    # ``--phase 9`` or ``--phase 10``: the kernels' build and that phase
-    # alone, no record line
+    # ``--phase 9``, ``--phase 10`` or ``--phase 11``: the kernels' build and
+    # that phase alone, no record line
     only = argv[1] if len(argv) == 2 and argv[0] == "--phase" else None
-    if argv and only not in ("9", "10"):
-        print(f"chip_smoke: unknown arguments {argv} (none, --phase 9 or --phase 10)",
+    if argv and only not in ("9", "10", "11"):
+        print(f"chip_smoke: unknown arguments {argv} (none, --phase 9, 10 or 11)",
               file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
@@ -3064,6 +3302,11 @@ def main(argv=None):
         print(f"chip_smoke: phase 10 alone in {time.perf_counter() - started:.1f} s; card: "
               f"{label}")
         return 0
+    if only == "11":
+        phase11_tools(dev, label)
+        print(f"chip_smoke: phase 11 alone in {time.perf_counter() - started:.1f} s; card: "
+              f"{label}")
+        return 0
 
     rec = phase3_kernels(dev, label, rate)
     st, counts = phase4_paths(label)
@@ -3079,6 +3322,7 @@ def main(argv=None):
     phase8_osse(label, build_ms)
     phase9_spinup(label)
     counts.update(phase10_parallel(dev, label, rate, rec))
+    phase11_tools(dev, label)
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels_line = [{"name": name + form, "route": "cuda", "source": src, "replaces": rep,
@@ -3089,7 +3333,7 @@ def main(argv=None):
                      for name, src, rep, _ in SHARDED_KERNELS]
     print(f"torch.profiler: {len(PROFILE_LOG['empty'])} of {PROFILE_LOG['taken']} profiles held "
           f"no device event; timed with CUDA events instead: {PROFILE_LOG['events']}")
-    print(f"chip_smoke: phases 1-10 in {time.perf_counter() - started:.1f} s")
+    print(f"chip_smoke: phases 1-11 in {time.perf_counter() - started:.1f} s")
     print(f"card: {label}")
     print(json.dumps({"kernels": kernels_line}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -19,6 +19,7 @@ from ..config import EcologyConfig, PhytoConfig
 from ..grid import Grid
 from ..ops import safegrad
 from ..ops.advect import advect_semilag_multi
+from ..ops.reductions import sum_fixed
 from ..ops.stencil import laplacian_sphere
 from ..parallel.halo import gsums
 from . import spectral as spec
@@ -210,10 +211,11 @@ def phyto_apply_transport(ps: PhytoStatic, st: PhytoState, cfg: PhytoConfig,
     C = torch.where(ps.ocean[None], torch.clamp(C, min=0.0), 0.0)
 
     # polar ring averaging (phyto.py:531-547), both rows in one pass (on a
-    # mesh, their sums and counts over every rank in one collective)
+    # mesh, their sums and counts over every rank in one collective); the
+    # ring sums add in one order, so a batched member's equal a single call's
     rows = (0, -1)
-    sums = gsums([x for r in rows for x in (torch.sum(ps.ocean[r]), torch.sum(
-        torch.where(ps.ocean[r][None], C[:, r], 0.0), dim=1))], grid.mesh)
+    sums = gsums([x for r in rows for x in (torch.sum(ps.ocean[r]), sum_fixed(
+        torch.where(ps.ocean[r][None], C[:, r], 0.0), 1))], grid.mesh)
     news = []
     for k, row in enumerate(rows):
         m, n = ps.ocean[row], sums[2 * k]

@@ -9,7 +9,10 @@ interpolation, so the port has none of it. ``advect_semilag_multi`` runs
 kernel K2 (``kernels/advect_bilinear.py``), which computes the departure
 points itself, on a CUDA tensor, through ``AdvectBilinear`` (an ensemble's
 members in one launch), and the plain ``departure_indices`` and
-``bilinear_wrap_gather_multi`` on a CPU tensor.
+``bilinear_wrap_gather_multi`` on a CPU tensor. The plain gather's
+backward (the VJP that K2's and K4's ``autograd.Function``s take) adds each
+cell's contributions in one order (``ops.scatter.gather_fixed``), so a
+gradient repeats to the bit on the card.
 
 On a rank of the longitude mesh (``mesh``) the stack is gathered whole and
 K2's sharded form writes the rank's columns: a departure point may lie any
@@ -27,6 +30,7 @@ import torch
 from ..kernels import use_kernel
 from ..parallel.halo import all_gather_lon, single
 from .members import plain_vjp, refuse_grad, to_front
+from .scatter import gather_fixed
 
 
 def bilinear_wrap_gather_multi(fields: torch.Tensor, dep_j: torch.Tensor,
@@ -44,8 +48,12 @@ def bilinear_wrap_gather_multi(fields: torch.Tensor, dep_j: torch.Tensor,
     i1 = torch.remainder(i0 + 1, W)
     flat = fields.reshape(M, H * W)
 
+    # a gradient sums the corners' contributions in a fixed order
+    # (``ops.scatter.gather_fixed``): autograd's own adds with atomics on a card
+    gather = gather_fixed if flat.requires_grad else torch.Tensor.index_select
+
     def corner(j, i):
-        return flat.index_select(1, (j * W + i).reshape(-1)).reshape((M,) + dep_j.shape)
+        return gather(flat, 1, (j * W + i).reshape(-1)).reshape((M,) + dep_j.shape)
 
     w00 = (1.0 - fj) * (1.0 - fi)
     w01 = (1.0 - fj) * fi

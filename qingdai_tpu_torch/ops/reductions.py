@@ -22,6 +22,21 @@ from ..parallel.halo import all_gather_lon, all_reduce_sum, gsum
 from .members import plain_vjp, refuse_grad, to_front
 
 
+def sum_fixed(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """``torch.sum(x, dim)`` in one order of additions, whatever ``x``'s other
+    dimensions: a pairwise tree of elementwise adds along ``dim`` (halves
+    added, an odd last entry carried up a level). A reduction kernel picks
+    its order of additions by the whole tensor's shape, so under
+    ``torch.func.vmap`` a member's sum could round differently from the
+    single planet's; elementwise adds cannot."""
+    x = x.movedim(dim, -1)
+    while x.shape[-1] > 1:
+        n, h = x.shape[-1], x.shape[-1] // 2
+        pairs = x[..., :h] + x[..., h:2 * h]
+        x = torch.cat([pairs, x[..., 2 * h:]], dim=-1) if n % 2 else pairs
+    return x[..., 0]
+
+
 def area_mean(x: torch.Tensor, w: torch.Tensor, mask: torch.Tensor | None = None,
               mesh=None) -> torch.Tensor:
     """Σ x·w / (Σ w + 1e-15); an optional boolean mask folds into the weights."""

@@ -8,6 +8,11 @@ rounds whose targets are unique (round k holds the k-th occurrence of each
 target, in the index's order). One ``index_add`` per round then gives every
 target its contributions in the index's order, which is also the order of
 the JAX package's sequential scatter on the CPU, on any device.
+
+Where the targets are known only on the device (the departure points of a
+gather, whose backward is a scatter-add), ``index_add_ordered`` sorts them
+stably and sums each target's run in order, with no host sync;
+``gather_fixed`` is an ``index_select`` whose backward does that.
 """
 
 from __future__ import annotations
@@ -65,3 +70,48 @@ def index_add_fixed(x: torch.Tensor, dim: int, plan: ScatterPlan,
     for a, b in plan.rounds:
         x = x.index_add(dim, plan.index[a:b], source.narrow(dim, a, b - a))
     return x
+
+
+def index_add_ordered(size: int, dim: int, index: torch.Tensor,
+                      source: torch.Tensor) -> torch.Tensor:
+    """A zero tensor of ``size`` along ``dim`` (``source``'s shape elsewhere)
+    ``.index_add(dim, index, source)``, each target's contributions summed in
+    the index's order, with targets known only on the device (a gather at
+    data-dependent points): a stable sort of the index and a segmented sum,
+    one thread a target adding its run in order. No host sync."""
+    order = torch.sort(index, stable=True).indices
+    counts = torch.bincount(index, minlength=size)
+    src = source.index_select(dim, order).movedim(dim, 0)
+    rest = src.shape[1:]
+    out = torch.segment_reduce(src.reshape(src.shape[0], -1).contiguous(), "sum",
+                               lengths=counts, axis=0, unsafe=True, initial=0)
+    return out.reshape((size,) + rest).movedim(0, dim)
+
+
+class _GatherFixed(torch.autograd.Function):
+    """``index_select`` whose backward adds in the index's order."""
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(x, dim, index):
+        return x.index_select(dim, index)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        x, dim, index = inputs
+        ctx.dim, ctx.size = dim, x.shape[dim]
+        ctx.save_for_backward(index)
+
+    @staticmethod
+    def backward(ctx, grad):
+        index, = ctx.saved_tensors
+        return index_add_ordered(ctx.size, ctx.dim, index, grad), None, None
+
+
+def gather_fixed(x: torch.Tensor, dim: int, index: torch.Tensor) -> torch.Tensor:
+    """``x.index_select(dim, index)`` whose gradient sums each target's
+    contributions in the index's order (``index_add_ordered``). Autograd's
+    own backward is an ``index_add``, which adds with atomics on a CUDA
+    tensor, so two identical gradient calls could differ in their last
+    bits; on the CPU it adds in the index's order, and this gives its bits."""
+    return _GatherFixed.apply(x, dim, index)

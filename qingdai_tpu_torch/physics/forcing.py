@@ -51,6 +51,24 @@ def insolation_components_from_phases(grid: Grid, phase_rot, phase_binary, phase
             _single_star_insolation(grid, phase_rot, flux_B, vBx, vBy))
 
 
+def insolation_components(grid: Grid, t):
+    """(insA, insB): per-star surface insolation fields (W/m²) at time t (s).
+
+    The three phases are formed in float64, as the JAX package forms them
+    under x64: a float32 product at t ≈ 1e7 s would lose the rotation phase.
+    They stay 0-d float64 tensors, so the orbit's scalars are float64 and the
+    fields come out in the grid's dtype, as JAX's weakly typed scalars do."""
+    t = torch.as_tensor(t, dtype=torch.float64).to(grid.lat_rad.device)
+    return insolation_components_from_phases(
+        grid, torch.remainder(t * const.PLANET_OMEGA, 2.0 * math.pi),
+        orbital.OMEGA_BINARY * t, orbital.OMEGA_PLANET * t)
+
+
+def insolation_total(grid: Grid, t):
+    insA, insB = insolation_components(grid, t)
+    return insA + insB
+
+
 def equilibrium_temp(isr, albedo):
     """T_eq = (I(1−α)/σ)^¼ with night-side zeros."""
     numerator = torch.clamp(isr * (1.0 - albedo), min=0.0)

@@ -9,6 +9,12 @@ from ..config import HydrologyConfig
 from ..ops.reductions import area_mean_compensated
 
 
+def partition_precip_phase(P_flux, T_s, T_thresh=273.15):
+    """Legacy hard-threshold split → (P_rain, P_snow)."""
+    snow_mask = T_s < T_thresh
+    return torch.where(snow_mask, 0.0, P_flux), torch.where(snow_mask, P_flux, 0.0)
+
+
 def partition_precip_phase_smooth(P_flux, T_hat_a, T_thresh=273.15, dT_half_K=1.5):
     """Sigmoid split on lapse-adjusted T̂_a → (P_rain, P_snow, f_snow)."""
     f_snow = torch.sigmoid((T_thresh - T_hat_a) / max(1e-6, dT_half_K))
@@ -35,6 +41,16 @@ def snowpack_step(S_snow, P_snow_land, T_hat_a, cfg: HydrologyConfig, dt):
                                          / max(1e-6, cfg.swe_ref_mm)), 0.0, 1.0)
     alpha_snow = torch.full_like(S_next, cfg.snow_albedo_fresh)
     return S_next, melt_out, C_snow, alpha_snow
+
+
+def snow_step(S_snow, P_snow_land, T_s, cfg: HydrologyConfig, dt):
+    """Legacy constant-rate snow reservoir → (S_next, melt_flux)."""
+    melt_rate = cfg.snow_melt_rate_mm_day / 86400.0
+    potential = torch.where(T_s >= cfg.snow_thresh_K, torch.full_like(T_s, melt_rate), 0.0) * dt
+    actual = torch.minimum(torch.clamp(S_snow, min=0.0), potential)
+    S_next = torch.clamp(S_snow + P_snow_land * dt - actual, min=0.0)
+    melt_flux = actual / dt if dt > 0 else torch.zeros_like(actual)
+    return S_next, melt_flux
 
 
 def update_land_bucket(W_land, P_in, E_land, cfg: HydrologyConfig, dt):

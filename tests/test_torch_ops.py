@@ -329,3 +329,71 @@ def test_advect_semilag_far_pole_departures_match_jax(M, grids):
     got = tadv.advect_semilag_multi(t64(F), t64(u), t64(v), dt, A, tg.dlat_rad,
                                     tg.dlon_rad, tg.coslat_cap_tiny)
     close(got, ref, 1e-12)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("dim", [0, 1])
+def test_gather_fixed_backward_is_autograds(dtype, dim):
+    """``ops.scatter.gather_fixed``'s gradient equals autograd's
+    ``index_select`` backward bit for bit on the CPU (which adds in the
+    index's order), with many repeated targets and targets never gathered."""
+    from qingdai_tpu_torch.ops.scatter import gather_fixed, index_add_ordered
+    g = torch.Generator().manual_seed(5)
+    x = torch.randn(40, 30, dtype=dtype, generator=g).requires_grad_(True)
+    idx = torch.randint(0, x.shape[dim] - 3, (500,), generator=g)
+    shape = list(x.shape)
+    shape[dim] = idx.numel()
+    ct = torch.randn(shape, dtype=dtype, generator=g)
+    want, = torch.autograd.grad(x.index_select(dim, idx), x, ct)
+    got, = torch.autograd.grad(gather_fixed(x, dim, idx), x, ct)
+    assert torch.equal(gather_fixed(x, dim, idx), x.index_select(dim, idx))
+    assert torch.equal(got, want)
+    assert int(torch.bincount(idx).max()) > 1
+    assert torch.equal(index_add_ordered(x.shape[dim], dim, idx, ct),
+                       torch.zeros_like(x).index_add(dim, idx, ct))
+
+
+def test_k2_plain_gradient_is_autograds():
+    """The plain K2's gradient (its corners through ``gather_fixed``) equals
+    the gradient of the same interpolation through ``index_select``."""
+    r = np.random.default_rng(9)
+    F = t64(280.0 + 20.0 * r.standard_normal((2, H, W))).requires_grad_(True)
+    dep_j = t64(r.uniform(-5, H + 5, (H, W)))
+    dep_i = t64(r.uniform(-5, W + 5, (H, W)))
+    ct = t64(r.standard_normal((2, H, W)))
+    got, = torch.autograd.grad(tadv.bilinear_wrap_gather_multi(F, dep_j, dep_i), F, ct)
+
+    def by_index_select(f):
+        j0 = torch.remainder(torch.floor(dep_j).long(), H)
+        i0 = torch.remainder(torch.floor(dep_i).long(), W)
+        fj, fi = dep_j - torch.floor(dep_j), dep_i - torch.floor(dep_i)
+        flat = f.reshape(2, H * W)
+
+        def corner(j, i):
+            return flat.index_select(1, (j * W + i).reshape(-1)).reshape(2, H, W)
+        return (corner(j0, i0) * ((1.0 - fj) * (1.0 - fi))
+                + corner(j0, (i0 + 1) % W) * ((1.0 - fj) * fi)
+                + corner((j0 + 1) % H, i0) * (fj * (1.0 - fi))
+                + corner((j0 + 1) % H, (i0 + 1) % W) * (fj * fi))
+
+    want, = torch.autograd.grad(by_index_select(F), F, ct)
+    assert torch.equal(by_index_select(F.detach()),
+                       tadv.bilinear_wrap_gather_multi(F.detach(), dep_j, dep_i))
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("n", [1, 2, 7, 36, 45, 360])
+def test_sum_fixed_is_one_order(n):
+    """``ops.reductions.sum_fixed`` is a sum (to float64 rounding of the
+    float32 one) whose bits do not depend on the tensor's other dimensions:
+    a member of a batch, vmapped or not, sums as the lone tensor does."""
+    from qingdai_tpu_torch.ops.reductions import sum_fixed
+    g = torch.Generator().manual_seed(n)
+    x = torch.randn(10, n, generator=g)
+    got = sum_fixed(x, 1)
+    assert got.shape == (10,)
+    torch.testing.assert_close(got.double(), x.double().sum(1), rtol=1e-6, atol=1e-6)
+    batch = torch.cat([x[None], torch.randn(7, 10, n, generator=g)])
+    assert torch.equal(sum_fixed(batch, 2)[0], got)
+    assert torch.equal(torch.func.vmap(lambda y: sum_fixed(y, 1))(batch)[0], got)
+    assert torch.equal(sum_fixed(x.t(), 0), got)

@@ -1,8 +1,10 @@
 """The port stands alone: it imports neither JAX nor the JAX package (nor its
 scripts), keeps its own copies of the configuration catalog, the topography
-generator and exporter, the point-ecology plots and the spin-up tools'
-host math (equal to the JAX package's), and its entry points run on the
-card unless the caller asks for the CPU."""
+generator and exporter, the point-ecology plots, the double buffers, the
+scalar plant, the spin-up tools' host math and the host tools' ``main``
+(equal to the JAX package's), and its entry points run on the card unless
+the caller asks for the CPU. The root ``conftest.py`` queues the heavy test
+files first."""
 
 import ast
 import dataclasses
@@ -16,8 +18,10 @@ from qingdai_tpu import config as JC
 from qingdai_tpu import flags
 from qingdai_tpu import topography as jtopo
 from qingdai_tpu_torch import config as TC
-from qingdai_tpu_torch import (assimilate, calibrate_joint, convert, entry, grid, model,
-                               regrid_restart, run_simulation, sensitivity, spinup, world)
+from qingdai_tpu_torch import (assimilate, calibrate_joint, convert, diag_isr, entry,
+                               generate_orbit_plots, grid, model, plot_ecology_point,
+                               regrid_restart, run_simulation, sensitivity, spinup,
+                               validate_hydro_routing, verify_calculation, world)
 from qingdai_tpu_torch import topography as ttopo
 
 REPO = Path(__file__).resolve().parents[1]
@@ -52,7 +56,13 @@ def test_port_sources_import_no_jax():
             "qingdai_tpu_torch/regrid_restart.py", "qingdai_tpu_torch/ecology/diversity.py",
             "qingdai_tpu_torch/viz/plots.py", "qingdai_tpu_torch/viz/ploter.py",
             "qingdai_tpu_torch/parallel/__init__.py", "qingdai_tpu_torch/parallel/mesh.py",
-            "qingdai_tpu_torch/parallel/halo.py", "qingdai_tpu_torch/parallel/dryrun.py"} <= names
+            "qingdai_tpu_torch/parallel/halo.py", "qingdai_tpu_torch/parallel/dryrun.py",
+            "qingdai_tpu_torch/numerics/double_buffer.py", "qingdai_tpu_torch/ecology/plant.py",
+            "qingdai_tpu_torch/verify_calculation.py", "qingdai_tpu_torch/generate_orbit_plots.py",
+            "qingdai_tpu_torch/diag_isr.py", "qingdai_tpu_torch/validate_hydro_routing.py",
+            "qingdai_tpu_torch/plot_ecology_point.py", "qingdai_tpu_torch/generate_topography.py",
+            "qingdai_tpu_torch/plot_topography.py", "qingdai_tpu_torch/analyze_topography.py",
+            "qingdai_tpu_torch/generate_hydrology_maps.py"} <= names
     bad = [(p.relative_to(REPO).as_posix(), m) for p in _port_sources()
            for m in _absolute_imports(p) if m.split(".")[0] in FORBIDDEN]
     assert bad == []
@@ -173,7 +183,8 @@ def _members(module):
             if (inspect.isfunction(o) or inspect.isclass(o)) and o.__module__ == module.__name__}
 
 
-@pytest.mark.parametrize("name", ["hydro_network", "io.ncdataset", "topography", "viz.ploter"])
+@pytest.mark.parametrize("name", ["hydro_network", "io.ncdataset", "topography", "viz.ploter",
+                                  "numerics.double_buffer"])
 def test_copies_equal_their_originals(name):
     """Every function and class of the port's copies of JAX-free modules has
     the source of the original's, the package's own name aside (a file's
@@ -202,7 +213,124 @@ def test_driver_and_cli_default_to_the_card(monkeypatch, tmp_path):
         assimilate.main(["--json"])
     with pytest.raises(RuntimeError, match="device='cpu'"):
         spinup.main(["--phase1-years", "0.001"])
+    for cli in (verify_calculation, generate_orbit_plots, diag_isr, validate_hydro_routing,
+                plot_ecology_point):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            cli.main([])
     assert not (tmp_path / "data").exists() and not (tmp_path / "output").exists()
+
+
+def test_plant_scalar_part_equals_the_original():
+    """The scalar plant (its state enum, report, stress knob and ``Plant``) is
+    the JAX package's source; the pool is the port's own."""
+    import inspect
+
+    from qingdai_tpu.ecology import plant as jplant
+    from qingdai_tpu_torch.ecology import plant as tplant
+    for n in ("PlantState", "PlantReport", "_stress_days_env", "Plant"):
+        assert inspect.getsource(getattr(tplant, n)) == inspect.getsource(getattr(jplant, n)), n
+    assert tplant.MATURE_LEAF_AREA == jplant.MATURE_LEAF_AREA
+
+
+@pytest.mark.parametrize("tool", ["generate_topography", "plot_topography",
+                                  "analyze_topography", "generate_hydrology_maps"])
+def test_host_tools_main_equals_the_scripts(tool):
+    """The four topography and hydrology tools are NumPy on the host: each
+    one's ``main`` is the JAX script's, over the port's own copies of
+    ``topography``, ``hydro_network`` and ``constants``."""
+    import importlib
+    import inspect
+    orig = importlib.import_module(f"scripts.{tool}")
+    copy = importlib.import_module(f"qingdai_tpu_torch.{tool}")
+    assert inspect.getsource(copy.main) == inspect.getsource(orig.main)
+    for alias in ("topo", "hn", "const"):
+        if hasattr(orig, alias):
+            assert getattr(copy, alias).__name__ == getattr(orig, alias).__name__.replace(
+                "qingdai_tpu", "qingdai_tpu_torch")
+
+
+# mirrors of tests/test_numerics.py on the port's copy of the double buffers
+
+def test_read_write_isolation():
+    from qingdai_tpu_torch.numerics.double_buffer import DoubleBufferingArray
+    d = DoubleBufferingArray((4, 4))
+    d[0, 0] = 5.0
+    assert d[0, 0] == 0.0
+    assert d.write[0, 0] == 5.0
+    d.swap()
+    assert d[0, 0] == 5.0
+
+
+def test_sync_and_ufunc_out():
+    from qingdai_tpu_torch.numerics.double_buffer import DoubleBufferingArray
+    d = DoubleBufferingArray(np.arange(6.0).reshape(2, 3))
+    np.multiply(d, 2.0, out=d)
+    assert np.allclose(d.read, np.arange(6.0).reshape(2, 3))
+    d.swap()
+    assert np.allclose(d.read, 2.0 * np.arange(6.0).reshape(2, 3))
+    d.sync()
+    assert np.allclose(d.write, d.read)
+
+
+def test_divmod_tuple_out():
+    from qingdai_tpu_torch.numerics.double_buffer import DoubleBufferingArray
+    d = DoubleBufferingArray(np.arange(1.0, 7.0).reshape(2, 3))
+    q = DoubleBufferingArray((2, 3))
+    r = DoubleBufferingArray((2, 3))
+    np.divmod(d, 2.0, out=(q, r))
+    q.swap()
+    r.swap()
+    qq, rr = np.divmod(np.arange(1.0, 7.0).reshape(2, 3), 2.0)
+    assert np.allclose(q.read, qq) and np.allclose(r.read, rr)
+
+
+def test_self_alias_raises():
+    from qingdai_tpu_torch.numerics.double_buffer import DoubleBufferingArray
+    d = DoubleBufferingArray((3,))
+    with pytest.raises(ValueError):
+        d[:] = d.write
+
+
+def test_host_double_buffer():
+    from qingdai_tpu_torch.numerics.double_buffer import HostDoubleBuffer
+    buf = HostDoubleBuffer()
+    assert buf.latest() is None
+    buf.publish({"a": 1})
+    assert buf.latest() == {"a": 1}
+    buf.publish({"a": 2})
+    assert buf.latest() == {"a": 2}
+
+
+def test_conftest_heavy_files_are_the_marked_ones():
+    """The root conftest's list of heavy files is the set of test files whose
+    source carries ``pytest.mark.heavy``, and its scheduler puts their work
+    units first, each group in its own order."""
+    import importlib.util
+    from collections import OrderedDict
+    spec = importlib.util.spec_from_file_location("root_conftest", REPO / "conftest.py")
+    conf = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(conf)
+    def heavy(path):
+        return any(isinstance(n, ast.Attribute) and n.attr == "heavy"
+                   and ast.unparse(n.value) == "pytest.mark"
+                   for n in ast.walk(ast.parse(path.read_text())))
+
+    marked = sorted(p.name for p in (REPO / "tests").glob("test_*.py") if heavy(p))
+    assert sorted(conf.HEAVY_FILES) == marked
+    # no JAX anywhere; xdist only inside the hook, which only xdist calls
+    assert not any(m.split(".")[0] in ("jax", "jaxlib")
+                   for m in _absolute_imports(REPO / "conftest.py"))
+    top = ast.parse((REPO / "conftest.py").read_text()).body
+    assert not any(isinstance(n, ast.ImportFrom) and n.module.startswith("xdist")
+                   or isinstance(n, ast.Import) and any(a.name.startswith("xdist")
+                                                        for a in n.names) for n in top)
+    q = OrderedDict((f"tests/{n}", {}) for n in (
+        "test_torch_kernels.py", "test_assim.py", "test_ops.py", "test_adjoint.py",
+        "test_numerics.py"))
+    conf.heavy_first(q)
+    assert list(q) == ["tests/test_assim.py", "tests/test_adjoint.py",
+                       "tests/test_torch_kernels.py", "tests/test_ops.py",
+                       "tests/test_numerics.py"]
 
 
 @pytest.mark.parametrize("module,names", [
