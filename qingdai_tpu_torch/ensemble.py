@@ -47,6 +47,7 @@ from .ecology import population as eco_mod
 from .parallel.halo import all_gather_members
 from .parallel.mesh import Mesh, make_mesh
 from .state import WorldState
+from .telemetry import span
 
 # the shared clock: (group, field) of every leaf that is the same for all
 # members and so carries no member axis
@@ -226,17 +227,23 @@ def run_steps(model: M.Model, ens: WorldState, n: int, diag_every: int, step, st
     """(ens, diags): ``n`` steps of every member, each one ``torch.func.vmap``
     of ``step(state, draws, *batched)`` (``step_nd`` on the steps that emit
     no diags: all but every ``diag_every``-th), in a Python loop. With
-    mutation on, each member's draws come from its generator."""
+    mutation on, each member's draws come from its generator. Each step
+    runs inside the span ``ensemble.step``; the diag rows are stacked inside
+    the last one, so that every device operation of a chunk falls in a step."""
     rows = []
     for i in range(n):
-        draws = (mutation_draws(model, ens, generators) if M.mutation_due(model, ens.clock)
-                 else None)
-        if (i + 1) % diag_every == 0:
-            ens, d = _vmap_step(step, ens, draws, batched)
-            rows.append(d)
-        else:
-            ens, _ = _vmap_step(step_nd, ens, draws, batched)
-    return ens, {k: torch.stack([r[k] for r in rows], dim=1) for k in rows[0]}
+        with span("ensemble.step"):
+            draws = (mutation_draws(model, ens, generators) if M.mutation_due(model, ens.clock)
+                     else None)
+            if (i + 1) % diag_every == 0:
+                ens, d = _vmap_step(step, ens, draws, batched)
+                rows.append(d)
+            else:
+                ens, _ = _vmap_step(step_nd, ens, draws, batched)
+            if i == n - 1:
+                with span("diag.rows"):
+                    diags = {k: torch.stack([r[k] for r in rows], dim=1) for k in rows[0]}
+    return ens, diags
 
 
 def make_ensemble_chunk_fn(model: M.Model, chunk_steps: Optional[int] = None,
