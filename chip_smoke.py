@@ -6,7 +6,7 @@ Phases, each of which raises on failure (exit code non-zero):
   1. the card (nvidia-smi name and power limit), torch and CUDA versions, and
      whether nvcc and triton are present; the card's device-to-device copy
      rate (clone of a 1 GiB tensor);
-  2. build the four CUDA kernels from ``qingdai_tpu_torch/csrc`` (one nvcc per
+  2. build the five CUDA kernels from ``qingdai_tpu_torch/csrc`` (one nvcc per
      source, in parallel) and print ptxas' register report;
   3. each kernel against its plain PyTorch version on the card, float32 and
      float64, at the main path's shapes (K1 bit-equal on the fields of
@@ -27,18 +27,24 @@ Phases, each of which raises on failure (exit code non-zero):
      member's own inputs and shared ones), each within ``BATCHED_TOL`` of
      its batched plain version, and timed beside the plain version, eight
      single calls and one PyTorch call where one exists (``phase3_batched``);
+     then K5 (the chlorophyll transport) against its plain version at one
+     planet [10, 181, 360] and the benchmark cells' stacks [400, 10, 181,
+     360] and [31, 10, 721, 1440], timed beside it and its bound
+     (``phase3_phyto``), and captured in the CUDA graph with K3 and K4;
   4. the main path, the flagship planet of ``__graft_entry__.entry()`` (the
      default configuration: 181×360, float32, ecology, the individual pool,
      phytoplankton and river routing on), built with no device argument: one
      planetary day of 240 steps, then a second, timed one, both with host
      syncs turned into errors; state and diags must be finite and physical,
-     the launch counters must grow by exactly 3, 3, 1 and 1 per step, the
+     the launch counters of K1–K5 must grow by exactly 3, 3, 1, 1 and 1 per
+     step, the
      daily blocks must run once a day and the routing event exactly 3 times
      a day, with its six diags finite and its closure identity holding; two
      routing events from one buffer must give the same bits. Then the
      planet without routing (the main path before routing was ported) and
      the path without ecology and phytoplankton (the slice of the first
-     bring-up), two shorter chunks each, with their own launch counts;
+     bring-up), two shorter chunks each, with their own launch counts (the
+     slice has no phytoplankton, so no K5);
  4b. the ensemble path (``qingdai_tpu_torch.ensemble``): the flagship planet
      with 1, 2, 4 and 8 members, each a warm chunk and a timed day under
      sync-debug "error" with functorch's per-member fallback an error; the
@@ -182,8 +188,10 @@ Phases, each of which raises on failure (exit code non-zero):
      float64. Each number beside the card's name and power limit. ``python3
      chip_smoke.py --phase 11`` builds the kernels and runs phase 11 alone,
      without the record lines.
-The line before the last is the kernels' JSON record, the four single forms
-(launches from phase 4's main path), the four batched forms (launches from
+``python3 chip_smoke.py --phase 3`` and ``--phase 4`` build the kernels and
+run that phase alone, without the record lines.
+The line before the last is the kernels' JSON record, the five single forms
+(launches from phase 4's main path), the five batched forms (launches from
 phase 4b's day at B = 8) and the sharded forms of K2 and K4 (launches from
 rank 0's day in 10.2 at 2 ranks); the last line is
 ``{"ok": true, "device": {...}}``.
@@ -219,6 +227,10 @@ KERNELS = [
     ("ocean_substeps", "qingdai_tpu_torch/csrc/ocean_substeps.cu",
      "qingdai_tpu/ops/pallas_ocean.py:200", 1),
 ]
+# K5, the chlorophyll transport: replaces no TPU kernel (the JAX package
+# leaves the chain to XLA's fusion); once a step where the phytoplankton's
+# transport runs (not the slice, not a rank of the longitude mesh)
+PHYTO_KERNEL = ("phyto_transport", "qingdai_tpu_torch/csrc/phyto_transport.cu", None, 1)
 # published H100 SXM peaks: HBM bytes/s and
 # float32 operations/s outside the tensor cores
 PEAK_BYTES = 3.35e12
@@ -361,6 +373,46 @@ def k4_operands(dev, dtype, n_tracers, n_sub, k4_nsub, K_h, seed=4, shape=(H, W)
         g, cfg, land, ocn, on(dev, r.normal(0.0, 8.0, shape), dtype),
         on(dev, r.normal(0.0, 4.0, shape), dtype), on(dev, r.normal(0.0, 150.0, shape), dtype),
         on(dev, r.random(shape) < 0.15, torch.bool), 300.0, n_sub, tracers)
+
+
+def k5_operands(dev, dtype, shape=(H, W), B=0, seed=5, plant=False, dry_pole=False,
+                shared_adv=False, K_h=5.0e3, land_zero=False):
+    """K5's operands on a grid of ``shape`` (181×360 unless given), drawn on
+    the card from ``seed``: C_phyto in [-0.05, 0.5) (some cells for the
+    clamp) and C_adv in [0, 0.5), [B, 10, h, w] (B = 0: [10, h, w]; C_adv
+    without the member axis if ``shared_adv``), 70% ocean, the capped cos
+    map, and (α, K_h, dt, dlat, dlon, a) as the flagship's. ``plant`` puts
+    NaN, +inf and −inf into C_phyto (one of them on pole row 0) and NaN into
+    C_adv's last column; ``dry_pole`` leaves row h−1 without ocean;
+    ``land_zero`` zeroes both stacks off the ocean, as the model's are (the
+    ∇²'s terms are then exact zeros over land)."""
+    from qingdai_tpu_torch import constants as const
+    from qingdai_tpu_torch.grid import make_grid
+
+    h, w = shape
+    g = make_grid(h, w, device=dev, dtype=dtype)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    stack = ((B,) if B else ()) + (N_SPECIES, h, w)
+
+    def draw(size, lo, hi):
+        x = torch.rand(size, generator=gen, device=dev, dtype=torch.float64)
+        return (lo + (hi - lo) * x).to(dtype)
+
+    Cp = draw(stack, -0.05, 0.5)
+    Ca = draw((N_SPECIES, h, w) if shared_adv else stack, 0.0, 0.5)
+    ocean = torch.rand((h, w), generator=gen, device=dev) < 0.7
+    if plant:                          # the planted cells are ocean
+        ocean[h // 3, 7] = ocean[0, 3] = ocean[h - 2, 1] = ocean[1, w - 1] = True
+        Cp[..., 0, h // 3, 7] = float("nan")
+        Cp[..., 1, 0, 3] = float("inf")
+        Cp[..., 2, h - 2, 1] = -float("inf")
+        Ca[..., 3, 1, w - 1] = float("nan")
+    if dry_pole:
+        ocean[-1] = False
+    if land_zero:
+        Cp, Ca = torch.where(ocean, Cp, 0.0), torch.where(ocean, Ca, 0.0)
+    return ((Cp, Ca, ocean, g.coslat_cap_05),
+            (0.7, K_h, 300.0, g.dlat_rad, g.dlon_rad, const.PLANET_RADIUS))
 
 
 def k1_cases(r, dtype, shape=(H, W)):
@@ -762,9 +814,10 @@ def phase3_kernels(dev, label, rate):
               f"({rec[name]['bound_by']}: {nbytes} B, {nops} flop), "
               f"{rec[name]['bound_copy_ms']:.5f} ms at the measured copy rate [{label}]")
     phase3_batched(dev, label, rate, rec)
+    k5_call = phase3_phyto(dev, label, rate, rec)
     k1_anatomy(x, rec["median_pos"]["ms"], label)
     k4_anatomy(mom, st, forc, geo, params, rec["ocean_substeps"]["ms"], label)
-    graph_replay(pairs["hyper4"][0], pairs["ocean_substeps"][0])
+    graph_replay(pairs["hyper4"][0], pairs["ocean_substeps"][0], k5_call)
     print(f"torch.profiler: {len(PROFILE_LOG['empty'])} of {PROFILE_LOG['taken']} profiles held "
           f"no device event and were taken again: {PROFILE_LOG['empty']}")
     return rec
@@ -831,6 +884,79 @@ def phase3_batched(dev, label, rate, rec):
               f"({rec[bname]['bound_by']}: {nbytes} B, {nops} flop) [{label}]")
 
 
+# K5 at the main path's shapes: one planet, and the member stacks of the
+# benchmark's two cells (400 members at 181x360, 31 at 721x1440)
+K5_SHAPES = ((0, (H, W)), (400, (H, W)), (31, (721, 1440)))
+
+
+def k5_bytes(B, shape, itemsize=4):
+    """K5's bytes at its bound: C_phyto and C_adv read once and C written
+    once (``B`` members, 1 for one planet, of 10 species), the mask and the
+    cos map read once."""
+    h, w = shape
+    return 3 * max(B, 1) * N_SPECIES * h * w * itemsize + h * w * (itemsize + 1)
+
+
+def phase3_phyto(dev, label, rate, rec):
+    """K5 against its plain version (under ``torch.func.vmap`` for the
+    batched form) at ``K5_SHAPES`` in float32, both stacks zero over land as
+    the model's are: max|err| (0: bit-equal) and
+    device ms a call in the order plain, kernel, kernel, plain, beside the
+    bound. No one PyTorch call computes the chain: the ∇² takes the capped
+    cos map's latitude-dependent coefficients, and the ring means a masked
+    sum in a fixed order. Returns a call of the single form for the CUDA
+    graph's replay."""
+    from qingdai_tpu_torch.ecology import phyto
+    from qingdai_tpu_torch.kernels.phyto_transport import (phyto_transport_batched_cuda,
+                                                           phyto_transport_cuda)
+
+    for B, shape in K5_SHAPES:
+        ops, sc = k5_operands(dev, torch.float32, shape, B=B, land_zero=True)
+        if B:
+            def kernel(ops=ops, sc=sc, B=B):
+                return phyto_transport_batched_cuda(*ops, *sc, B)
+
+            def plain(ops=ops, sc=sc):
+                return torch.func.vmap(phyto.phyto_transport_plain,
+                                       in_dims=(0, 0) + (None,) * 8)(*ops, *sc)
+        else:
+            def kernel(ops=ops, sc=sc):
+                return phyto_transport_cuda(*ops, *sc)
+
+            def plain(ops=ops, sc=sc):
+                return phyto.phyto_transport_plain(*ops, *sc)
+        got, ref = kernel(), plain()
+        err = float((got - ref).abs().max())
+        exact = same_bits(got.cpu(), ref.cpu())
+        scale = float(ref.abs().max())
+        del got, ref
+        if not err <= 1e-6 * scale:
+            raise AssertionError(f"K5 {B} x {shape}: max|err| {err} against the plain version")
+        name = "phyto_transport" + ("_batched" if B else "")
+        p1, (k1, n_dev), k2, p2 = (device_ms(plain, what=f"{name}'s plain version"),
+                                   device_profile(kernel, what=f"kernel {name}"),
+                                   device_ms(kernel, what=f"kernel {name}"),
+                                   device_ms(plain, what=f"{name}'s plain version"))
+        nbytes = k5_bytes(B, shape)
+        entry = {"max_abs_err": err, "ms": statistics.median([k1, k2]),
+                 "plain_ms": statistics.median([p1, p2]), **bound(nbytes, 0, rate),
+                 "library_ms": None}
+        if name not in rec:            # the record line: one planet, and 400 members
+            rec[name] = entry
+        stack = f"{B} x " if B else ""
+        print(f"time {name} ({stack}{N_SPECIES} x {shape[0]}x{shape[1]}, float32), device ms "
+              f"per call: kernel {k1:.5f}/{k2:.5f} ({n_dev:g} device launches a call), plain "
+              f"{p1:.5f}/{p2:.5f}; max|err| against plain {err:.3e} "
+              f"({'bit-equal' if exact else 'not bit-equal'}); bound {entry['bound_ms']:.5f} ms "
+              f"(bytes: {nbytes} B at 3.35 TB/s; {entry['bound_copy_ms']:.5f} ms at the measured "
+              f"copy rate), kernel at {100 * entry['bound_ms'] / entry['ms']:.1f}% of it "
+              f"[{label}]", flush=True)
+        del ops
+        torch.cuda.empty_cache()
+    ops, sc = k5_operands(dev, torch.float32)
+    return lambda: (phyto_transport_cuda(*ops, *sc),)
+
+
 def k4_anatomy(mom, st, forc, geo, params, kernel_ms, label, reps=50):
     """Where K4's time goes: the middle tile's block over ``reps`` traced
     launches, per stage (SM cycles at the clock measured over the tile
@@ -872,7 +998,7 @@ def graph_replay(*calls):
         torch.cuda.synchronize()
         if not all(torch.equal(a, b) for a, b in zip(eager, captured)):
             raise AssertionError("a CUDA graph replay differs from the eager call")
-    print(f"CUDA graph: {len(calls)} kernels (K3, K4) captured; replays bit-equal to eager "
+    print(f"CUDA graph: {len(calls)} kernels (K3, K4, K5) captured; replays bit-equal to eager "
           "calls, two eager calls bit-equal")
 
 
@@ -1045,17 +1171,19 @@ def routing_event_check(mdl, st, label):
           f"launches ({rs.n_levels} levels, {len(rs.rounds)} rounds) [{label}]")
 
 
-def path_counts(steps, form=""):
+def path_counts(steps, form="", phyto=True):
     """Each wrapper's launches over ``steps`` steps of a path: the main
-    path's 3, 3, 1 and 1 a step of the forms named ``form`` ("" the single
+    path's 3, 3, 1, 1 and 1 a step of the forms named ``form`` ("" the single
     forms, "_batched" the batched ones, "_sharded" a rank of the longitude
     mesh, which runs K2's and K4's sharded forms, K4's with two launches a
-    step, and K1's and K3's single forms), none of the others."""
+    step, K1's and K3's single forms and K5's plain version), none of the
+    others. ``phyto`` False: a path without the phytoplankton, no K5."""
     from qingdai_tpu_torch import kernels
 
     sharded = {name: per_step for name, _, _, per_step in SHARDED_KERNELS}
     want = {}
-    for name, _, _, per_step in KERNELS:
+    k5 = [PHYTO_KERNEL] if phyto and form != "_sharded" else []
+    for name, _, _, per_step in KERNELS + k5:
         key = name + form if name + form in kernels.wrappers() else name
         want[key] = sharded.get(key, per_step) * steps
     return {k: want.get(k, 0) for k in kernels.wrappers()}
@@ -1079,7 +1207,7 @@ def phase4_paths(label):
         raise AssertionError(f"daily blocks ran {daily}, expected {want_daily}")
     if events != [EVENTS_PER_DAY] * 2:
         raise AssertionError(f"routing events per day {events}, expected {EVENTS_PER_DAY}")
-    print(f"main path launch counts per day: {counts[-1]} (3, 3, 1, 1 per step); "
+    print(f"main path launch counts per day: {counts[-1]} (3, 3, 1, 1, 1 per step); "
           f"daily blocks per day: {daily}; routing events per day: {events}")
     ts, umax = check_run(st, diags, STEPS_PER_DAY, eco=True)
     rd, gap = check_routing(diags)
@@ -1095,10 +1223,10 @@ def phase4_paths(label):
     del mdl, diags
     flagship, main_counts = st, counts[-1]
 
-    # the planet without routing and the slice: two shorter chunks each,
-    # the second timed
-    want = path_counts(SHORT_STEPS)
+    # the planet without routing and the slice (no phytoplankton, so no
+    # K5): two shorter chunks each, the second timed
     for env, tag in ((PLANET, "planet without routing"), (SLICE, "slice")):
+        want = path_counts(SHORT_STEPS, phyto=env is PLANET)
         mdl, st, diags, counts, _, events, ms = run_path(env, SHORT_STEPS, 2, label, tag)
         if any(c != want for c in counts) or any(events):
             raise AssertionError(f"{tag}: launch counts {counts} != {want} a chunk, or "
@@ -3258,11 +3386,11 @@ def same_report(a: dict, b: dict) -> bool:
 
 def main(argv=None):
     argv = sys.argv[1:] if argv is None else argv
-    # ``--phase 9``, ``--phase 10`` or ``--phase 11``: the kernels' build and
+    # ``--phase 3``, ``4``, ``9``, ``10`` or ``11``: the kernels' build and
     # that phase alone, no record line
     only = argv[1] if len(argv) == 2 and argv[0] == "--phase" else None
-    if argv and only not in ("9", "10", "11"):
-        print(f"chip_smoke: unknown arguments {argv} (none, --phase 9, 10 or 11)",
+    if argv and only not in ("3", "4", "9", "10", "11"):
+        print(f"chip_smoke: unknown arguments {argv} (none, --phase 3, 4, 9, 10 or 11)",
               file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
@@ -3293,6 +3421,14 @@ def main(argv=None):
     lib = build.build(verbose=True)
     build.load_library()
     print(f"kernels built in {time.perf_counter() - t0:.2f} s: {lib.name}")
+    if only in ("3", "4"):
+        if only == "3":
+            phase3_kernels(dev, label, rate)
+        else:
+            phase4_paths(label)
+        print(f"chip_smoke: phase {only} alone in {time.perf_counter() - started:.1f} s; card: "
+              f"{label}")
+        return 0
     if only == "9":
         phase9_spinup(label)
         print(f"chip_smoke: phase 9 alone in {time.perf_counter() - started:.1f} s; card: {label}")
@@ -3327,7 +3463,7 @@ def main(argv=None):
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels_line = [{"name": name + form, "route": "cuda", "source": src, "replaces": rep,
                      "launches": counts[name + form], **{k: rec[name + form][k] for k in keys}}
-                    for form in ("", "_batched") for name, src, rep, _ in KERNELS]
+                    for form in ("", "_batched") for name, src, rep, _ in KERNELS + [PHYTO_KERNEL]]
     kernels_line += [{"name": name, "route": "cuda", "source": src, "replaces": rep,
                       "launches": counts[name], **{k: rec[name][k] for k in keys}}
                      for name, src, rep, _ in SHARDED_KERNELS]

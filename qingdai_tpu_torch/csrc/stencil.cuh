@@ -1,5 +1,6 @@
 // Device code of the spherical Laplacian on a tile in shared memory, shared
-// by kernels K3 (hyper4.cu) and K4 (ocean_substeps.cu): the operator of
+// by kernels K3 (hyper4.cu) and K4 (ocean_substeps.cu; K5, phyto_transport.cu,
+// takes its reciprocals, `Inv`): the operator of
 // `_lap_batched` (qingdai_tpu/ops/pallas_stencil.py) and of
 // `laplacian_sphere` (qingdai_tpu_torch/ops/stencil.py),
 //   lap(X) = ( d/dphi(cos * dX/dphi) / cos + d2X/dlambda2 / cos^2 ) / a^2,

@@ -4,7 +4,14 @@ S-species mixed-layer chlorophyll with spectral light limitation, a Q10
 temperature factor, Michaelis-Menten single-nutrient competition, band
 optics → water reflectance, and per-physics-step semi-Lagrangian transport
 by the ocean currents. The build is NumPy with the JAX package's draws; the
-daily step and the transport are torch over [S, NB, H, W] broadcasts.
+daily step is torch over [S, NB, H, W] broadcasts.
+
+The transport after the gather (blend, ∇² diffusion, mask and clamp, the
+polar ring means) runs kernel K5 (``kernels/phyto_transport.py``) on a CUDA
+tensor, through ``PhytoTransport`` (an ensemble's members in one launch),
+and ``phyto_transport_plain`` on a CPU tensor and on a rank of the longitude
+mesh, whose ring sums add across ranks. The JAX package leaves this chain to
+XLA's fusion; eager PyTorch would launch some 75 kernels for it a step.
 """
 
 from __future__ import annotations
@@ -17,11 +24,13 @@ import torch
 from .. import constants as const
 from ..config import EcologyConfig, PhytoConfig
 from ..grid import Grid
+from ..kernels import use_kernel
 from ..ops import safegrad
 from ..ops.advect import advect_semilag_multi
+from ..ops.members import members_first, plain_vjp, refuse_grad
 from ..ops.reductions import sum_fixed
 from ..ops.stencil import laplacian_sphere
-from ..parallel.halo import gsums
+from ..parallel.halo import gsums, single
 from . import spectral as spec
 
 
@@ -198,32 +207,76 @@ def phyto_step_daily(ps: PhytoStatic, st: PhytoState, cfg: PhytoConfig,
                       alpha_scalar=alpha_scalar, Kd_490=Kd_b[ps.idx_490])
 
 
-def phyto_apply_transport(ps: PhytoStatic, st: PhytoState, cfg: PhytoConfig,
-                          grid: Grid, C_adv, dt: float) -> PhytoState:
-    """Blend, lateral diffusion and masking given the advected chlorophyll
-    (the gather may have ridden the ocean's SST advection, kernel K4)."""
-    a = const.PLANET_RADIUS
-    C = (1.0 - cfg.adv_alpha) * st.C_phyto + cfg.adv_alpha * C_adv
-    if cfg.K_h > 0.0:
+def phyto_transport_plain(C_phyto: torch.Tensor, C_adv: torch.Tensor, ocean: torch.Tensor,
+                          coslat: torch.Tensor, alpha: float, K_h: float, dt: float,
+                          dlat: float, dlon: float, a: float, mesh=None) -> torch.Tensor:
+    """Plain version of kernel K5: blend, lateral diffusion, masking and the
+    polar ring means of the chlorophyll [S, H, W] given the advected stack
+    ``C_adv``, the ocean mask and the capped cos map."""
+    C = (1.0 - alpha) * C_phyto + alpha * C_adv
+    if K_h > 0.0:
         C = torch.nan_to_num(C)
-        C = C + dt * cfg.K_h * laplacian_sphere(C, grid.dlat_rad, grid.dlon_rad,
-                                                grid.coslat_cap_05, a, grid.mesh)
-    C = torch.where(ps.ocean[None], torch.clamp(C, min=0.0), 0.0)
+        C = C + dt * K_h * laplacian_sphere(C, dlat, dlon, coslat, a, mesh)
+    C = torch.where(ocean[None], torch.clamp(C, min=0.0), 0.0)
 
     # polar ring averaging (phyto.py:531-547), both rows in one pass (on a
     # mesh, their sums and counts over every rank in one collective); the
     # ring sums add in one order, so a batched member's equal a single call's
     rows = (0, -1)
-    sums = gsums([x for r in rows for x in (torch.sum(ps.ocean[r]), sum_fixed(
-        torch.where(ps.ocean[r][None], C[:, r], 0.0), 1))], grid.mesh)
+    sums = gsums([x for r in rows for x in (torch.sum(ocean[r]), sum_fixed(
+        torch.where(ocean[r][None], C[:, r], 0.0), 1))], mesh)
     news = []
     for k, row in enumerate(rows):
-        m, n = ps.ocean[row], sums[2 * k]
+        m, n = ocean[row], sums[2 * k]
         mean_row = sums[2 * k + 1] / torch.clamp(n, min=1)
         news.append(torch.where(m[None] & (n > 0), mean_row[:, None], C[:, row]))
     rows = torch.arange(C.shape[1], device=C.device)[None, :, None]
-    C = torch.where(rows == 0, news[0][:, None, :],
-                    torch.where(rows == C.shape[1] - 1, news[1][:, None, :], C))
+    return torch.where(rows == 0, news[0][:, None, :],
+                       torch.where(rows == C.shape[1] - 1, news[1][:, None, :], C))
+
+
+class PhytoTransport(torch.autograd.Function):
+    """K5 on a CUDA tensor; its gradient the plain version's VJP; under
+    ``torch.func.vmap`` the batched form, one launch for every member
+    (``ops.members``)."""
+
+    @staticmethod
+    def forward(C_phyto, C_adv, ocean, coslat, alpha, K_h, dt, dlat, dlon, a):
+        from ..kernels.phyto_transport import phyto_transport_cuda
+        return phyto_transport_cuda(C_phyto.contiguous(), C_adv.contiguous(), ocean.contiguous(),
+                                    coslat.contiguous(), alpha, K_h, dt, dlat, dlon, a)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        C_phyto, C_adv, ocean, coslat, *scalars = inputs
+        ctx.save_for_backward(C_phyto, C_adv, ocean, coslat)
+        ctx.scalars = scalars
+
+    @staticmethod
+    def backward(ctx, g):
+        return plain_vjp(phyto_transport_plain, (*ctx.saved_tensors, *ctx.scalars), (g,),
+                         ctx.needs_input_grad)
+
+    @staticmethod
+    def vmap(info, in_dims, C_phyto, C_adv, ocean, coslat, alpha, K_h, dt, dlat, dlon, a):
+        from ..kernels.phyto_transport import phyto_transport_batched_cuda
+        refuse_grad("phyto_transport", C_phyto, C_adv, coslat)
+        stacks = [members_first(t, d) for t, d in zip((C_phyto, C_adv, ocean, coslat), in_dims)]
+        return phyto_transport_batched_cuda(*stacks, alpha, K_h, dt, dlat, dlon, a,
+                                            info.batch_size), 0
+
+
+def phyto_apply_transport(ps: PhytoStatic, st: PhytoState, cfg: PhytoConfig,
+                          grid: Grid, C_adv, dt: float) -> PhytoState:
+    """Blend, lateral diffusion and masking given the advected chlorophyll
+    (the gather may have ridden the ocean's SST advection, kernel K4): K5
+    on a CUDA tensor, the plain version on a CPU tensor or a mesh rank."""
+    args = (st.C_phyto, C_adv, ps.ocean, grid.coslat_cap_05, cfg.adv_alpha, cfg.K_h, dt,
+            grid.dlat_rad, grid.dlon_rad, const.PLANET_RADIUS)
+    if single(grid.mesh) and use_kernel(st.C_phyto):
+        C = PhytoTransport.apply(*args)
+    else:
+        C = phyto_transport_plain(*args, grid.mesh)
     return dataclasses.replace(st, C_phyto=C)
 
 

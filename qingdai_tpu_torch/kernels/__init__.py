@@ -1,4 +1,8 @@
-"""Python wrappers of the hand-written CUDA kernels (sources in ``csrc/``).
+"""Python wrappers of the hand-written CUDA kernels (sources in ``csrc/``):
+five kernels, K1 the median of positives (``median_pos``), K2 the
+semi-Lagrangian gather (``advect_bilinear``), K3 the ∇⁴ hyperdiffusion
+(``hyper4``), K4 the ocean substeps (``ocean_substeps``) and K5 the
+chlorophyll transport (``phyto_transport``).
 
 Each wrapper takes CUDA tensors only: it checks device, dtype, shape and
 contiguity, raises on anything else, allocates its outputs and scratch with
@@ -47,15 +51,18 @@ def check_tensor(t: torch.Tensor, name: str, dtype: torch.dtype, shape=None) -> 
 
 def member_stride(t: torch.Tensor, name: str, dtype: torch.dtype, shape, n_members: int) -> int:
     """A batched form's input: an [n_members, *shape] tensor, each member's
-    own (its member stride is the per-member size), or a [*shape] tensor
-    shared by every member (stride 0, read without a copy). Checked as
-    ``check_tensor`` does."""
+    own, whose members' blocks are each contiguous at the tensor's member
+    stride (a contiguous stack, or a slice of a larger one, read in place),
+    or a [*shape] tensor shared by every member (stride 0, read without a
+    copy). Each member's block is checked as ``check_tensor`` does."""
     if n_members < 1:
         raise ValueError(f"n_members must be >= 1, got {n_members}")
     shape = tuple(shape)
     if isinstance(t, torch.Tensor) and t.dim() == len(shape) + 1:
-        check_tensor(t, name, dtype, (n_members,) + shape)
-        return math.prod(shape)
+        if t.shape[0] != n_members:
+            raise ValueError(f"{name}: expected {n_members} members, got shape {tuple(t.shape)}")
+        check_tensor(t[0], name, dtype, shape)
+        return t.stride(0) if n_members > 1 else math.prod(shape)
     check_tensor(t, name, dtype, shape)
     return 0
 
@@ -72,7 +79,7 @@ def launch(name: str, dtype: torch.dtype, device: torch.device, *args) -> None:
 
 
 def wrappers() -> dict:
-    """The kernel wrappers by kernel name: the four single forms, their
+    """The kernel wrappers by kernel name: the five single forms, their
     batched forms (one launch for an ensemble's members) and the sharded
     forms of K2 and K4 (a rank of the longitude mesh; K4's launches two
     kernels a substep, each counted), each counted apart."""
@@ -82,12 +89,15 @@ def wrappers() -> dict:
     from .median_pos import median_pos_batched_cuda, median_pos_cuda
     from .ocean_substeps import (ocean_substep_sharded_cuda, ocean_substeps_batched_cuda,
                                  ocean_substeps_cuda)
+    from .phyto_transport import phyto_transport_batched_cuda, phyto_transport_cuda
     return {"median_pos": median_pos_cuda, "advect_bilinear": advect_bilinear_cuda,
             "hyper4": hyperdiffuse_cuda, "ocean_substeps": ocean_substeps_cuda,
             "median_pos_batched": median_pos_batched_cuda,
             "advect_bilinear_batched": advect_bilinear_batched_cuda,
             "hyper4_batched": hyperdiffuse_batched_cuda,
             "ocean_substeps_batched": ocean_substeps_batched_cuda,
+            "phyto_transport": phyto_transport_cuda,
+            "phyto_transport_batched": phyto_transport_batched_cuda,
             "advect_bilinear_sharded": advect_bilinear_sharded_cuda,
             "ocean_substeps_sharded": ocean_substep_sharded_cuda}
 

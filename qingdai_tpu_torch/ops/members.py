@@ -57,3 +57,14 @@ def to_front(t: torch.Tensor, dim) -> torch.Tensor:
     """A batched input with its member axis first, contiguous; an unbatched
     one (``dim`` None) as it is, contiguous, for every member to share."""
     return (t if dim is None else t.movedim(dim, 0)).contiguous()
+
+
+def members_first(t: torch.Tensor, dim) -> torch.Tensor:
+    """``to_front`` without its copy where each member's block is already
+    contiguous, as in a slice of a larger stack (the chlorophyll planes of
+    K4's [SST + tracers] output, 1 GB a step at 400 members): a batched
+    form reads members at any member stride (``kernels.member_stride``)."""
+    if dim is None:
+        return t.contiguous()
+    t = t.movedim(dim, 0)
+    return t if t[0].is_contiguous() else t.contiguous()

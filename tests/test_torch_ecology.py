@@ -368,3 +368,43 @@ def test_phyto_transport_matches_jax(built, path):
         got = tphy.phyto_advect_diffuse(b["tps"], _to_port(jst), b["tpc"], tg, _t(uo), _t(vo),
                                         300.0)
     _close_fields(ref, got)
+
+
+class _Rank:
+    """A rank of a longitude mesh of two, as far as the dispatch looks."""
+    n, rank = 2, 0
+
+
+@pytest.mark.parametrize("device,mesh", [("cpu", None), ("cpu", _Rank()), ("card", None),
+                                         ("card", _Rank())],
+                         ids=["cpu", "cpu-mesh", "card", "card-mesh"])
+def test_phyto_transport_dispatch(built, monkeypatch, device, mesh):
+    """A CPU tensor and a mesh rank (whose ring sums add across ranks) take
+    the plain version with the grid's mesh; a card's tensor on one rank
+    takes K5's Function (``use_kernel`` stubbed: no card here). On the CPU
+    the step's result is the plain version's."""
+    b = built
+    r = np.random.default_rng(18)
+    st = _to_port(_random_phyto(b, 19))
+    C_adv = _t(r.uniform(0, 0.5, (b["tps"].S, H, W)))
+    tg = dataclasses.replace(t_make_grid(H, W, device="cpu", dtype=F64), mesh=mesh)
+    taken = []
+
+    def plain(*args):
+        taken.append(("plain", args[-1]))
+        return args[0]
+
+    monkeypatch.setattr(tphy, "phyto_transport_plain", plain)
+    monkeypatch.setattr(tphy.PhytoTransport, "apply",
+                        lambda *args: taken.append(("kernel", None)) or args[0])
+    if device == "card":
+        monkeypatch.setattr(tphy, "use_kernel", lambda t: True)
+    tphy.phyto_apply_transport(b["tps"], st, b["tpc"], tg, C_adv, 300.0)
+    assert taken == [("kernel" if device == "card" and mesh is None else "plain", mesh)]
+    if device == "cpu" and mesh is None:
+        monkeypatch.undo()
+        got = tphy.phyto_apply_transport(b["tps"], st, b["tpc"], tg, C_adv, 300.0)
+        ref = tphy.phyto_transport_plain(st.C_phyto, C_adv, b["tps"].ocean, tg.coslat_cap_05,
+                                         b["tpc"].adv_alpha, b["tpc"].K_h, 300.0, tg.dlat_rad,
+                                         tg.dlon_rad, tphy.const.PLANET_RADIUS)
+        assert torch.equal(got.C_phyto, ref)

@@ -1,4 +1,4 @@
-"""The four CUDA kernels against their plain PyTorch versions on the card,
+"""The five CUDA kernels against their plain PyTorch versions on the card,
 and their batched forms (an ensemble's members in one launch) against single
 calls, and each kernel's backward (the plain version's VJP) through its
 ``autograd.Function``. K1's fields, K2's cases, K4's operands, the batched
@@ -11,6 +11,7 @@ JAX, so on a machine with a card and without JAX it runs alone with
 """
 
 import math
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -18,11 +19,13 @@ import torch
 
 from chip_smoke import (GRAD_TOL, GRADCHECK_NONDET, GRADCHECK_SHAPE, SHAREABLE, wrap_cols,
                         batched_equal, batched_pairs, grad_cases, k1_cases, k2_check,
-                        k4_operands)
+                        k4_operands, k5_operands)
 from qingdai_tpu_torch import constants as const
 from qingdai_tpu_torch import kernels, ocean
+from qingdai_tpu_torch.ecology import phyto
 from qingdai_tpu_torch.grid import make_grid
-from qingdai_tpu_torch.kernels import advect_bilinear, hyper4, median_pos, ocean_substeps
+from qingdai_tpu_torch.kernels import (advect_bilinear, hyper4, median_pos, ocean_substeps,
+                                       phyto_transport)
 from qingdai_tpu_torch.ops import advect, reductions, stencil
 
 pytestmark = pytest.mark.gpu
@@ -254,17 +257,21 @@ def test_ocean_substeps_kernel_trace(dev):
 
 
 def test_kernels_replay_in_a_cuda_graph(dev):
-    """One call of K3 and of K4 captured in a CUDA graph replays to the bits
-    of an eager call."""
+    """One call of K3, of K4 and of K5 (single and batched) captured in a
+    CUDA graph replays to the bits of an eager call."""
     mom, st, forc, geo, params = k4_operands(dev, torch.float32, 10, 1, 1, 5.0e3)
     g = make_grid(H, W, device=dev, dtype=torch.float32)
     F = _on(dev, 30.0 * np.random.default_rng(3).standard_normal((5, H, W)), torch.float32)
     k4 = (0.02 * g.k4_map_unit / 300.0)[None].expand(5, H, W).contiguous()
+    k5, k5_sc = k5_operands(dev, torch.float32)
+    k5b, _ = k5_operands(dev, torch.float32, B=3, seed=6)
 
     def calls():
         return (hyper4.hyperdiffuse_cuda(F, k4, 300.0, 1, g.dlat_rad, g.dlon_rad,
                                          g.coslat_cap_02, A),
-                *ocean_substeps.ocean_substeps_cuda(mom, st, forc, geo, **params))
+                *ocean_substeps.ocean_substeps_cuda(mom, st, forc, geo, **params),
+                phyto_transport.phyto_transport_cuda(*k5, *k5_sc),
+                phyto_transport.phyto_transport_batched_cuda(*k5b, *k5_sc, 3))
 
     eager = calls()
     torch.cuda.synchronize()
@@ -473,3 +480,135 @@ def test_sharded_wrappers_refuse_bad_input(dev):
     with pytest.raises(ValueError):   # columns beyond the stack
         advect_bilinear.advect_bilinear_sharded_cuda(F, u, u, 300.0, A, g.dlat_rad, g.dlon_rad,
                                                      u, W // 2 + 1)
+
+
+# ---- K5, the chlorophyll transport (replaces no TPU kernel) ----
+
+def bit_equal(a, b) -> bool:
+    """The same dtype, shape and bits, NaNs included."""
+    ints = {torch.float32: torch.int32, torch.float64: torch.int64}
+    return (a.dtype == b.dtype and a.shape == b.shape
+            and torch.equal(a.view(ints[a.dtype]), b.view(ints[b.dtype])))
+
+
+def k5_plain_vmap(ops, sc, shared_adv=False):
+    """The plain version under torch.func.vmap, as the CPU runs the ensemble."""
+    return torch.func.vmap(phyto.phyto_transport_plain,
+                           in_dims=(0, None if shared_adv else 0) + (None,) * 8)(*ops, *sc)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("K_h", [5.0e3, 0.0])
+@pytest.mark.parametrize("shape,case", [((181, 360), "land"), ((181, 360), "planted"),
+                                        ((19, 37), "planted"), ((20, 1030), "planted"),
+                                        ((721, 1440), "land")],
+                         ids=["181x360-land", "181x360-planted", "19x37-planted",
+                              "20x1030-planted", "721x1440-land"])
+def test_phyto_transport_kernel_bit_equal(dev, dtype, K_h, shape, case):
+    """K5 through its Function, one launch, equals the plain version on the
+    card bit for bit: the 16-byte path (W a multiple of 4) and the per-column
+    paths (odd W; W above 512), NaN and ±inf planted, or both stacks zero
+    over land as the model's are (the ∇²'s zero terms skip the division),
+    the north pole row without ocean (its ring mean left out), with and
+    without diffusion."""
+    plant = case == "planted"
+    ops, sc = k5_operands(dev, dtype, shape, plant=plant, dry_pole=True, K_h=K_h,
+                          land_zero=case == "land")
+    before = kernels.launch_counts()["phyto_transport"]
+    got = phyto.PhytoTransport.apply(*ops, *sc)
+    assert kernels.launch_counts()["phyto_transport"] == before + 1
+    ref = phyto.phyto_transport_plain(*ops, *sc)
+    assert bit_equal(got, ref)
+    if plant:
+        assert not torch.isfinite(ref).all()      # the planted values reach the output
+    assert torch.equal(got[:, -1], torch.where(ops[2][-1], got[:, -1], 0.0))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("adv", ["own", "shared", "sliced"])
+@pytest.mark.parametrize("shape", [(181, 360), (19, 37)])
+def test_phyto_transport_batched_equals_single_calls(dev, dtype, adv, shape):
+    """The batched form for 3 members in one launch: each member equals its
+    single call and the plain version under vmap bit for bit; C_adv is each
+    member's own, one stack for every member (stride 0), or the tracer
+    planes of a larger [B, 11, H, W] stack, read in place at its member
+    stride, as K4's output is."""
+    B = 3
+    shared_adv = adv == "shared"
+    ops, sc = k5_operands(dev, dtype, shape, B=B, seed=9, plant=True, shared_adv=shared_adv)
+    if adv == "sliced":
+        big = torch.cat([torch.zeros_like(ops[1][:, :1]), ops[1]], dim=1)
+        ops = (ops[0], big[:, 1:], *ops[2:])
+        assert not ops[1].is_contiguous() and ops[1][0].is_contiguous()
+    before = kernels.launch_counts()
+    got = phyto_transport.phyto_transport_batched_cuda(*ops, *sc, B)
+    after = kernels.launch_counts()
+    assert after["phyto_transport_batched"] == before["phyto_transport_batched"] + 1
+    assert bit_equal(got, k5_plain_vmap(ops, sc, shared_adv))
+    Cp, Ca, ocean_, cos = ops
+    for b in range(B):
+        one = phyto_transport.phyto_transport_cuda(Cp[b], Ca if shared_adv else Ca[b], ocean_,
+                                                   cos, *sc)
+        assert bit_equal(got[b], one), b
+
+
+def test_phyto_transport_vmap_reaches_the_batched_form(dev):
+    """``phyto_apply_transport`` under torch.func.vmap launches the batched
+    form once for every member and no single form, and copies no stack (C_adv
+    a slice, as K4 gives it); the members equal the plain version's under
+    vmap."""
+    (Cp, Ca, ocean_, _), sc = k5_operands(dev, torch.float32, B=4, seed=10)
+    Ca = torch.cat([Ca[:, :1], Ca], dim=1)[:, 1:]        # K4's tracer planes: a slice
+    g = make_grid(H, W, device=dev, dtype=torch.float32)
+    ps, cfg = SimpleNamespace(ocean=ocean_), SimpleNamespace(adv_alpha=sc[0], K_h=sc[1])
+
+    def step(C_phyto, C_adv):
+        st = phyto.PhytoState(C_phyto=C_phyto, N=C_phyto[0], alpha_bands=C_phyto[:1],
+                              alpha_scalar=C_phyto[0], Kd_490=C_phyto[0])
+        return phyto.phyto_apply_transport(ps, st, cfg, g, C_adv, sc[2]).C_phyto
+
+    before = kernels.launch_counts()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        got = torch.func.vmap(step)(Cp, Ca)
+    after = kernels.launch_counts()
+    assert {k: after[k] - before[k] for k in after if after[k] != before[k]} == {
+        "phyto_transport_batched": 1}
+    assert not [e.name for e in prof.events() if e.name in ("aten::copy_", "aten::clone")]
+    assert bit_equal(got, k5_plain_vmap((Cp, Ca, ocean_, g.coslat_cap_05), sc))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_phyto_transport_backward_equals_plain_vjp(dev, dtype):
+    """The Function's VJP is the plain version's (``plain_vjp``): with
+    respect to C_phyto, C_adv and the cos map, the same numbers, and the
+    backward launches nothing; the batched form refuses an input that
+    requires grad."""
+    ops, sc = k5_operands(dev, dtype, seed=11)
+    ins = [t.clone().requires_grad_(True) if t.is_floating_point() else t for t in ops]
+    before = kernels.launch_counts()["phyto_transport"]
+    out = phyto.PhytoTransport.apply(*ins, *sc)
+    ct = torch.randn(out.shape, generator=torch.Generator(device=dev).manual_seed(12),
+                     device=dev, dtype=torch.float64).to(dtype)
+    wrt = [ins[0], ins[1], ins[3]]
+    got = torch.autograd.grad(out, wrt, ct)
+    ref = torch.autograd.grad(phyto.phyto_transport_plain(*ins, *sc), wrt, ct)
+    assert kernels.launch_counts()["phyto_transport"] == before + 1
+    for x, y in zip(got, ref):
+        assert torch.equal(x, y)
+    batched = [torch.stack([t, t]) for t in ops]
+    batched[0].requires_grad_(True)
+    with pytest.raises(RuntimeError, match="batched kernel has no backward"):
+        torch.func.vmap(lambda *t: phyto.PhytoTransport.apply(*t, *sc))(*batched)
+
+
+def test_phyto_transport_wrappers_refuse_bad_input(dev):
+    (Cp, Ca, ocean_, cos), sc = k5_operands(dev, torch.float32, (19, 37), B=2)
+    with pytest.raises(ValueError):
+        phyto_transport.phyto_transport_batched_cuda(Cp, Ca, ocean_, cos, *sc, 3)  # 2, not 3
+    with pytest.raises(ValueError):
+        phyto_transport.phyto_transport_cuda(Cp[0], Ca[0][:, :, ::2], ocean_, cos, *sc)
+    with pytest.raises(TypeError):
+        phyto_transport.phyto_transport_cuda(Cp[0], Ca[0], ocean_.float(), cos, *sc)
+    with pytest.raises(ValueError):
+        phyto_transport.phyto_transport_cuda(Cp[0, :, :2], Ca[0, :, :2], ocean_[:2], cos[:2],
+                                             *sc)
