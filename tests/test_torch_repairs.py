@@ -3,12 +3,13 @@ scripts), keeps its own copies of the configuration catalog, the topography
 generator and exporter, the point-ecology plots, the double buffers, the
 scalar plant, the spin-up tools' host math and the host tools' ``main``
 (equal to the JAX package's), and its entry points run on the card unless
-the caller asks for the CPU. The root ``conftest.py`` queues the heavy test
-files first."""
+the caller asks for the CPU. The root ``conftest.py`` makes each test of the
+heavy test files a work unit of its own and queues those first."""
 
 import ast
 import dataclasses
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -301,15 +302,20 @@ def test_host_double_buffer():
     assert buf.latest() == {"a": 2}
 
 
+def _root_conftest():
+    import importlib.util
+    spec = importlib.util.spec_from_file_location("root_conftest", REPO / "conftest.py")
+    conf = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(conf)
+    return conf
+
+
 def test_conftest_heavy_files_are_the_marked_ones():
     """The root conftest's list of heavy files is the set of test files whose
     source carries ``pytest.mark.heavy``, and its scheduler puts their work
     units first, each group in its own order."""
-    import importlib.util
     from collections import OrderedDict
-    spec = importlib.util.spec_from_file_location("root_conftest", REPO / "conftest.py")
-    conf = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(conf)
+    conf = _root_conftest()
     def heavy(path):
         return any(isinstance(n, ast.Attribute) and n.attr == "heavy"
                    and ast.unparse(n.value) == "pytest.mark"
@@ -331,6 +337,72 @@ def test_conftest_heavy_files_are_the_marked_ones():
     assert list(q) == ["tests/test_assim.py", "tests/test_adjoint.py",
                        "tests/test_torch_kernels.py", "tests/test_ops.py",
                        "tests/test_numerics.py"]
+
+
+class _Worker:
+    """A stand-in for one xdist worker: logs the tests sent to it."""
+    shutting_down = False
+
+    def __init__(self, log, name):
+        self.log = log
+        self.gateway = SimpleNamespace(id=name)
+
+    def send_runtest_some(self, indices):
+        self.log.extend((self, i) for i in indices)
+
+    def shutdown(self):
+        self.shutting_down = True
+
+
+def test_conftest_scheduler_gives_each_heavy_test_its_own_unit():
+    """Under ``--dist loadfile`` the root conftest's scheduler makes each test
+    of a heavy file a work unit of its own, parametrised ids and ids with a
+    class included, keeps every other file one unit, sends the heavy units
+    first in collection order, and sends every test exactly once."""
+    conf = _root_conftest()
+    collection = [
+        "tests/test_ops.py::test_a",
+        "tests/test_ops.py::TestGrid::test_b[1-2]",
+        "tests/test_adjoint.py::test_grad[a::b]",
+        "tests/test_adjoint.py::test_grad[c-d]",
+        "tests/test_adjoint.py::TestFD::test_fd[x]",
+        "tests/test_torch_kernels.py::test_k[x]",
+        "tests/test_torch_kernels.py::TestK::test_k2[y::z]",
+        "tests/test_world_io.py::test_save",
+        "tests/test_assim.py::TestCycle::test_cycle",
+        "tests/test_numerics.py::test_n"]
+    heavy = [n for n in collection if n.split("::")[0].split("/")[-1] in conf.HEAVY_FILES]
+    assert len(heavy) == 5
+
+    def config(dist):
+        opts = {"dist": dist, "tx": ["2*popen"]}
+        return SimpleNamespace(getvalue=opts.get,
+                               option=SimpleNamespace(loadscopereorder=True))
+
+    assert conf.pytest_xdist_make_scheduler(config("load"), None) is None
+    sched = conf.pytest_xdist_make_scheduler(config("loadfile"), None)
+    scopes = {}
+    for nodeid in collection:
+        scopes.setdefault(nodeid.split("::", 1)[0], set()).add(sched._split_scope(nodeid))
+    for path, s in scopes.items():
+        mine = [n for n in collection if n.startswith(path + "::")]
+        assert s == (set(mine) if mine[0] in heavy else {path}), path
+
+    log = []
+    workers = [_Worker(log, "gw0"), _Worker(log, "gw1")]
+    for w in workers:
+        sched.add_node(w)
+        sched.add_node_collection(w, collection)
+    sched.schedule()
+    done = 0
+    while done < len(log):     # each worker finishes its tests in the order sent
+        w, i = log[done]
+        sched.mark_test_complete(w, i)
+        done += 1
+    sent = [collection[i] for _, i in log]
+    assert sorted(sent) == sorted(collection)
+    assert sent[:len(heavy)] == heavy
+    assert not sched.workqueue and all(w.shutting_down for w in workers)
 
 
 @pytest.mark.parametrize("module,names", [
