@@ -6,7 +6,7 @@ Phases, each of which raises on failure (exit code non-zero):
   1. the card (nvidia-smi name and power limit), torch and CUDA versions, and
      whether nvcc and triton are present; the card's device-to-device copy
      rate (clone of a 1 GiB tensor);
-  2. build the five CUDA kernels from ``qingdai_tpu_torch/csrc`` (one nvcc per
+  2. build the six CUDA kernels from ``qingdai_tpu_torch/csrc`` (one nvcc per
      source, in parallel) and print ptxas' register report;
   3. each kernel against its plain PyTorch version on the card, float32 and
      float64, at the main path's shapes (K1 bit-equal on the fields of
@@ -31,20 +31,25 @@ Phases, each of which raises on failure (exit code non-zero):
      planet [10, 181, 360] and the benchmark cells' stacks [400, 10, 181,
      360] and [31, 10, 721, 1440], timed beside it and its bound
      (``phase3_phyto``), and captured in the CUDA graph with K3 and K4;
+     then K6 (the separable Gaussian filter) bit-equal to its plain version
+     at one planet [181, 360] and the cells' stacks [400, 181, 360] and
+     [31, 721, 1440], σ 1 reflect and σ 0.2 wrap, timed beside the plain
+     chain and its bound (``phase3_gauss``), and in the CUDA graph too;
   4. the main path, the flagship planet of ``__graft_entry__.entry()`` (the
      default configuration: 181×360, float32, ecology, the individual pool,
      phytoplankton and river routing on), built with no device argument: one
      planetary day of 240 steps, then a second, timed one, both with host
      syncs turned into errors; state and diags must be finite and physical,
-     the launch counters of K1–K5 must grow by exactly 3, 3, 1, 1 and 1 per
-     step, the
+     the launch counters of K1–K6 must grow by exactly 3, 3, 1, 1, 1 and 5
+     per step, the
      daily blocks must run once a day and the routing event exactly 3 times
      a day, with its six diags finite and its closure identity holding; two
      routing events from one buffer must give the same bits. Then the
      planet without routing (the main path before routing was ported) and
      the path without ecology and phytoplankton (the slice of the first
      bring-up), two shorter chunks each, with their own launch counts (the
-     slice has no phytoplankton, so no K5);
+     slice has no phytoplankton, so no K5; K6's five calls a step run on
+     every path but a rank of the longitude mesh);
  4b. the ensemble path (``qingdai_tpu_torch.ensemble``): the flagship planet
      with 1, 2, 4 and 8 members, each a warm chunk and a timed day under
      sync-debug "error" with functorch's per-member fallback an error; the
@@ -190,8 +195,8 @@ Phases, each of which raises on failure (exit code non-zero):
      without the record lines.
 ``python3 chip_smoke.py --phase 3`` and ``--phase 4`` build the kernels and
 run that phase alone, without the record lines.
-The line before the last is the kernels' JSON record, the five single forms
-(launches from phase 4's main path), the five batched forms (launches from
+The line before the last is the kernels' JSON record, the six single forms
+(launches from phase 4's main path), the six batched forms (launches from
 phase 4b's day at B = 8) and the sharded forms of K2 and K4 (launches from
 rank 0's day in 10.2 at 2 ranks); the last line is
 ``{"ok": true, "device": {...}}``.
@@ -231,6 +236,11 @@ KERNELS = [
 # leaves the chain to XLA's fusion); once a step where the phytoplankton's
 # transport runs (not the slice, not a rank of the longitude mesh)
 PHYTO_KERNEL = ("phyto_transport", "qingdai_tpu_torch/csrc/phyto_transport.cu", None, 1)
+# K6, the separable Gaussian filter: replaces no TPU kernel (the JAX package
+# leaves the filter to XLA's fusion); five calls a step on every path (the
+# hybrid precipitation, its convergence fallback, the cloud from it, the
+# cloud source and the advected cloud), none on a rank of the longitude mesh
+GAUSS_KERNEL = ("gauss_sep", "qingdai_tpu_torch/csrc/gauss_sep.cu", None, 5)
 # published H100 SXM peaks: HBM bytes/s and
 # float32 operations/s outside the tensor cores
 PEAK_BYTES = 3.35e12
@@ -815,9 +825,10 @@ def phase3_kernels(dev, label, rate):
               f"{rec[name]['bound_copy_ms']:.5f} ms at the measured copy rate [{label}]")
     phase3_batched(dev, label, rate, rec)
     k5_call = phase3_phyto(dev, label, rate, rec)
+    k6_call = phase3_gauss(dev, label, rate, rec)
     k1_anatomy(x, rec["median_pos"]["ms"], label)
     k4_anatomy(mom, st, forc, geo, params, rec["ocean_substeps"]["ms"], label)
-    graph_replay(pairs["hyper4"][0], pairs["ocean_substeps"][0], k5_call)
+    graph_replay(pairs["hyper4"][0], pairs["ocean_substeps"][0], k5_call, k6_call)
     print(f"torch.profiler: {len(PROFILE_LOG['empty'])} of {PROFILE_LOG['taken']} profiles held "
           f"no device event and were taken again: {PROFILE_LOG['empty']}")
     return rec
@@ -957,6 +968,90 @@ def phase3_phyto(dev, label, rate, rec):
     return lambda: (phyto_transport_cuda(*ops, *sc),)
 
 
+def gauss_field(dev, dtype, shape=(H, W), B=0, seed=13, plant=False):
+    """K6's input on a grid of ``shape`` (181×360 unless given), drawn on the
+    card from ``seed``: uniform in [-1, 1), [h, w] (B = 0) or [B, h, w].
+    ``plant`` puts NaN next to the seam on the row after pole row 0, +inf
+    on pole row h−1 next to the seam and −inf on the seam mid-field."""
+    h, w = shape
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.rand(((B,) if B else ()) + (h, w), generator=gen, device=dev, dtype=torch.float64)
+    F = (2.0 * x - 1.0).to(dtype)
+    if plant:
+        F[..., min(1, h - 1), 0] = float("nan")
+        F[..., h - 1, w - 2] = float("inf")
+        F[..., h // 2, w - 1] = -float("inf")
+    return F
+
+
+# K6 at the main path's shapes: one planet, and the member stacks of the
+# benchmark's two cells; the step's two calls, σ 1 reflect and σ 0.2 wrap
+GAUSS_SHAPES = ((0, (H, W)), (400, (H, W)), (31, (721, 1440)))
+GAUSS_CALLS = ((1.0, "reflect"), (0.2, "wrap"))
+
+
+def phase3_gauss(dev, label, rate, rec):
+    """K6 against its plain version (under ``torch.func.vmap`` for the
+    batched form, as the ensemble runs it) at ``GAUSS_SHAPES`` and
+    ``GAUSS_CALLS`` in float32: bit-equal, and device ms a call in the order
+    plain, kernel, kernel, plain, beside the bound (the field read once and
+    the result written once, 2S). No one PyTorch call computes it:
+    ``F.pad``'s reflect leaves out the edge value that scipy's repeats.
+    Returns a call of the single and the batched form for the CUDA graph's
+    replay."""
+    from qingdai_tpu_torch.kernels.gauss_sep import (gaussian_filter_batched_cuda,
+                                                     gaussian_filter_cuda)
+    from qingdai_tpu_torch.ops import smooth
+
+    for B, shape in GAUSS_SHAPES:
+        F = gauss_field(dev, torch.float32, shape, B=B)
+        for sigma, mode in GAUSS_CALLS:
+            taps = smooth._gauss_kernel(sigma)
+            if B:
+                def kernel(F=F, taps=taps, mode=mode, B=B):
+                    return gaussian_filter_batched_cuda(F, taps, mode, mode, B)
+
+                def plain(F=F, sigma=sigma, mode=mode):
+                    return torch.func.vmap(smooth.gaussian_filter_plain,
+                                           in_dims=(0, None, None, None))(F, sigma, mode, mode)
+            else:
+                def kernel(F=F, taps=taps, mode=mode):
+                    return gaussian_filter_cuda(F, taps, mode, mode)
+
+                def plain(F=F, sigma=sigma, mode=mode):
+                    return smooth.gaussian_filter_plain(F, sigma, mode, mode)
+            got, ref = kernel(), plain()
+            exact = torch.equal(got.view(torch.int32), ref.view(torch.int32))
+            err = float((got - ref).abs().max())
+            del got, ref
+            name = "gauss_sep" + ("_batched" if B else "")
+            if not exact:
+                raise AssertionError(f"K6 {B} x {shape} σ {sigma} {mode}: not bit-equal to the "
+                                     f"plain version (max|err| {err})")
+            p1, (k1, n_dev), k2, p2 = (device_ms(plain, what=f"{name}'s plain version"),
+                                       device_profile(kernel, what=f"kernel {name}"),
+                                       device_ms(kernel, what=f"kernel {name}"),
+                                       device_ms(plain, what=f"{name}'s plain version"))
+            nbytes = 2 * F.numel() * F.element_size()
+            entry = {"max_abs_err": err, "ms": statistics.median([k1, k2]),
+                     "plain_ms": statistics.median([p1, p2]), **bound(nbytes, 0, rate),
+                     "library_ms": None}
+            if name not in rec:        # the record line: one planet, and 400 members, σ 1
+                rec[name] = entry
+            stack = f"{B} x " if B else ""
+            print(f"time {name} ({stack}{shape[0]}x{shape[1]}, σ {sigma} {mode}, float32), "
+                  f"device ms per call: kernel {k1:.5f}/{k2:.5f} ({n_dev:g} device launches a "
+                  f"call), plain {p1:.5f}/{p2:.5f}; bit-equal to plain; bound "
+                  f"{entry['bound_ms']:.5f} ms (bytes: {nbytes} B at 3.35 TB/s; "
+                  f"{entry['bound_copy_ms']:.5f} ms at the measured copy rate), kernel at "
+                  f"{100 * entry['bound_ms'] / entry['ms']:.1f}% of it [{label}]", flush=True)
+        del F
+        torch.cuda.empty_cache()
+    F, Fb = gauss_field(dev, torch.float32), gauss_field(dev, torch.float32, B=3, seed=14)
+    return lambda: (gaussian_filter_cuda(F, smooth._gauss_kernel(1.0)),
+                    gaussian_filter_batched_cuda(Fb, smooth._gauss_kernel(0.2), "wrap", "wrap", 3))
+
+
 def k4_anatomy(mom, st, forc, geo, params, kernel_ms, label, reps=50):
     """Where K4's time goes: the middle tile's block over ``reps`` traced
     launches, per stage (SM cycles at the clock measured over the tile
@@ -998,8 +1093,8 @@ def graph_replay(*calls):
         torch.cuda.synchronize()
         if not all(torch.equal(a, b) for a, b in zip(eager, captured)):
             raise AssertionError("a CUDA graph replay differs from the eager call")
-    print(f"CUDA graph: {len(calls)} kernels (K3, K4, K5) captured; replays bit-equal to eager "
-          "calls, two eager calls bit-equal")
+    print(f"CUDA graph: {len(calls)} calls (K3, K4, K5, K6 single and batched) captured; replays "
+          "bit-equal to eager calls, two eager calls bit-equal")
 
 
 def grid_sample_call(F, dep_j, dep_i):
@@ -1173,17 +1268,19 @@ def routing_event_check(mdl, st, label):
 
 def path_counts(steps, form="", phyto=True):
     """Each wrapper's launches over ``steps`` steps of a path: the main
-    path's 3, 3, 1, 1 and 1 a step of the forms named ``form`` ("" the single
-    forms, "_batched" the batched ones, "_sharded" a rank of the longitude
-    mesh, which runs K2's and K4's sharded forms, K4's with two launches a
-    step, K1's and K3's single forms and K5's plain version), none of the
-    others. ``phyto`` False: a path without the phytoplankton, no K5."""
+    path's 3, 3, 1, 1, 1 and 5 a step (K1–K6) of the forms named ``form``
+    ("" the single forms, "_batched" the batched ones, "_sharded" a rank of
+    the longitude mesh, which runs K2's and K4's sharded forms, K4's with two
+    launches a step, K1's and K3's single forms and K5's and K6's plain
+    versions), none of the others. ``phyto`` False: a path without the
+    phytoplankton, no K5."""
     from qingdai_tpu_torch import kernels
 
     sharded = {name: per_step for name, _, _, per_step in SHARDED_KERNELS}
     want = {}
     k5 = [PHYTO_KERNEL] if phyto and form != "_sharded" else []
-    for name, _, _, per_step in KERNELS + k5:
+    k6 = [GAUSS_KERNEL] if form != "_sharded" else []
+    for name, _, _, per_step in KERNELS + k5 + k6:
         key = name + form if name + form in kernels.wrappers() else name
         want[key] = sharded.get(key, per_step) * steps
     return {k: want.get(k, 0) for k in kernels.wrappers()}
@@ -1207,7 +1304,7 @@ def phase4_paths(label):
         raise AssertionError(f"daily blocks ran {daily}, expected {want_daily}")
     if events != [EVENTS_PER_DAY] * 2:
         raise AssertionError(f"routing events per day {events}, expected {EVENTS_PER_DAY}")
-    print(f"main path launch counts per day: {counts[-1]} (3, 3, 1, 1, 1 per step); "
+    print(f"main path launch counts per day: {counts[-1]} (3, 3, 1, 1, 1, 5 per step); "
           f"daily blocks per day: {daily}; routing events per day: {events}")
     ts, umax = check_run(st, diags, STEPS_PER_DAY, eco=True)
     rd, gap = check_routing(diags)
@@ -3463,7 +3560,8 @@ def main(argv=None):
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels_line = [{"name": name + form, "route": "cuda", "source": src, "replaces": rep,
                      "launches": counts[name + form], **{k: rec[name + form][k] for k in keys}}
-                    for form in ("", "_batched") for name, src, rep, _ in KERNELS + [PHYTO_KERNEL]]
+                    for form in ("", "_batched")
+                    for name, src, rep, _ in KERNELS + [PHYTO_KERNEL, GAUSS_KERNEL]]
     kernels_line += [{"name": name, "route": "cuda", "source": src, "replaces": rep,
                       "launches": counts[name], **{k: rec[name][k] for k in keys}}
                      for name, src, rep, _ in SHARDED_KERNELS]

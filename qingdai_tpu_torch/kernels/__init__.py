@@ -1,8 +1,9 @@
 """Python wrappers of the hand-written CUDA kernels (sources in ``csrc/``):
-five kernels, K1 the median of positives (``median_pos``), K2 the
+six kernels, K1 the median of positives (``median_pos``), K2 the
 semi-Lagrangian gather (``advect_bilinear``), K3 the ∇⁴ hyperdiffusion
-(``hyper4``), K4 the ocean substeps (``ocean_substeps``) and K5 the
-chlorophyll transport (``phyto_transport``).
+(``hyper4``), K4 the ocean substeps (``ocean_substeps``), K5 the
+chlorophyll transport (``phyto_transport``) and K6 the separable Gaussian
+filter (``gauss_sep``).
 
 Each wrapper takes CUDA tensors only: it checks device, dtype, shape and
 contiguity, raises on anything else, allocates its outputs and scratch with
@@ -79,12 +80,13 @@ def launch(name: str, dtype: torch.dtype, device: torch.device, *args) -> None:
 
 
 def wrappers() -> dict:
-    """The kernel wrappers by kernel name: the five single forms, their
+    """The kernel wrappers by kernel name: the six single forms, their
     batched forms (one launch for an ensemble's members) and the sharded
     forms of K2 and K4 (a rank of the longitude mesh; K4's launches two
     kernels a substep, each counted), each counted apart."""
     from .advect_bilinear import (advect_bilinear_batched_cuda, advect_bilinear_cuda,
                                   advect_bilinear_sharded_cuda)
+    from .gauss_sep import gaussian_filter_batched_cuda, gaussian_filter_cuda
     from .hyper4 import hyperdiffuse_batched_cuda, hyperdiffuse_cuda
     from .median_pos import median_pos_batched_cuda, median_pos_cuda
     from .ocean_substeps import (ocean_substep_sharded_cuda, ocean_substeps_batched_cuda,
@@ -98,6 +100,8 @@ def wrappers() -> dict:
             "ocean_substeps_batched": ocean_substeps_batched_cuda,
             "phyto_transport": phyto_transport_cuda,
             "phyto_transport_batched": phyto_transport_batched_cuda,
+            "gauss_sep": gaussian_filter_cuda,
+            "gauss_sep_batched": gaussian_filter_batched_cuda,
             "advect_bilinear_sharded": advect_bilinear_sharded_cuda,
             "ocean_substeps_sharded": ocean_substep_sharded_cuda}
 

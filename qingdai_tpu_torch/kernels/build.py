@@ -41,6 +41,7 @@ SIGNATURES = {
     "qd_ocean_tiles_sharded": [_P] * 8 + [_I] * 9 + [_D] * 9 + [_I, _D, _P],
     "qd_ocean_finish_sharded": [_P] * 3 + [_I, _I, _D, _I, _D, _P],
     "qd_phyto_transport": [_P] * 5 + [_I] + [_LL] * 4 + [_I] * 4 + [_D] * 6 + [_P],
+    "qd_gauss_sep": [_P, _P, _I, _LL, _I, _I, _I, _P, _I, _I, _P],
 }
 # C signatures of the shape queries: the halos (rows, cols) and K4's tile count
 QUERY_SIGNATURES = {

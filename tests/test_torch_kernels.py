@@ -1,4 +1,4 @@
-"""The five CUDA kernels against their plain PyTorch versions on the card,
+"""The six CUDA kernels against their plain PyTorch versions on the card,
 and their batched forms (an ensemble's members in one launch) against single
 calls, and each kernel's backward (the plain version's VJP) through its
 ``autograd.Function``. K1's fields, K2's cases, K4's operands, the batched
@@ -18,15 +18,15 @@ import pytest
 import torch
 
 from chip_smoke import (GRAD_TOL, GRADCHECK_NONDET, GRADCHECK_SHAPE, SHAREABLE, wrap_cols,
-                        batched_equal, batched_pairs, grad_cases, k1_cases, k2_check,
-                        k4_operands, k5_operands)
+                        batched_equal, batched_pairs, gauss_field, grad_cases, k1_cases,
+                        k2_check, k4_operands, k5_operands)
 from qingdai_tpu_torch import constants as const
 from qingdai_tpu_torch import kernels, ocean
 from qingdai_tpu_torch.ecology import phyto
 from qingdai_tpu_torch.grid import make_grid
-from qingdai_tpu_torch.kernels import (advect_bilinear, hyper4, median_pos, ocean_substeps,
-                                       phyto_transport)
-from qingdai_tpu_torch.ops import advect, reductions, stencil
+from qingdai_tpu_torch.kernels import (advect_bilinear, gauss_sep, hyper4, median_pos,
+                                       ocean_substeps, phyto_transport)
+from qingdai_tpu_torch.ops import advect, reductions, smooth, stencil
 
 pytestmark = pytest.mark.gpu
 
@@ -257,21 +257,25 @@ def test_ocean_substeps_kernel_trace(dev):
 
 
 def test_kernels_replay_in_a_cuda_graph(dev):
-    """One call of K3, of K4 and of K5 (single and batched) captured in a
-    CUDA graph replays to the bits of an eager call."""
+    """One call of K3, of K4, of K5 and of K6 (K5 and K6 single and batched)
+    captured in a CUDA graph replays to the bits of an eager call."""
     mom, st, forc, geo, params = k4_operands(dev, torch.float32, 10, 1, 1, 5.0e3)
     g = make_grid(H, W, device=dev, dtype=torch.float32)
     F = _on(dev, 30.0 * np.random.default_rng(3).standard_normal((5, H, W)), torch.float32)
     k4 = (0.02 * g.k4_map_unit / 300.0)[None].expand(5, H, W).contiguous()
     k5, k5_sc = k5_operands(dev, torch.float32)
     k5b, _ = k5_operands(dev, torch.float32, B=3, seed=6)
+    k6, k6b = gauss_field(dev, torch.float32), gauss_field(dev, torch.float32, (721, 1440), B=3)
 
     def calls():
         return (hyper4.hyperdiffuse_cuda(F, k4, 300.0, 1, g.dlat_rad, g.dlon_rad,
                                          g.coslat_cap_02, A),
                 *ocean_substeps.ocean_substeps_cuda(mom, st, forc, geo, **params),
                 phyto_transport.phyto_transport_cuda(*k5, *k5_sc),
-                phyto_transport.phyto_transport_batched_cuda(*k5b, *k5_sc, 3))
+                phyto_transport.phyto_transport_batched_cuda(*k5b, *k5_sc, 3),
+                gauss_sep.gaussian_filter_cuda(k6, smooth._gauss_kernel(1.0)),
+                gauss_sep.gaussian_filter_batched_cuda(k6b, smooth._gauss_kernel(0.2), "wrap",
+                                                       "wrap", 3))
 
     eager = calls()
     torch.cuda.synchronize()
@@ -612,3 +616,155 @@ def test_phyto_transport_wrappers_refuse_bad_input(dev):
     with pytest.raises(ValueError):
         phyto_transport.phyto_transport_cuda(Cp[0, :, :2], Ca[0, :, :2], ocean_[:2], cos[:2],
                                              *sc)
+
+
+# ---- K6, the separable Gaussian filter (replaces no TPU kernel) ----
+
+# (σ, lat mode, lon mode): the step's two calls, each mode on each axis, and
+# radii off the fast path (r = 2 and 12: the general path)
+K6_CALLS = [(1.0, "reflect", "reflect"), (0.2, "wrap", "wrap"), (1.0, "nearest", "wrap"),
+            (1.0, "wrap", "nearest"), (0.2, "reflect", "nearest"), (0.2, "nearest", "reflect"),
+            (0.5, "reflect", "wrap"), (3.0, "nearest", "reflect")]
+# W a multiple of 4 (16-byte path), odd W and W % 4 == 2 (one access a
+# column), and rows wider than the fast path's 512 threads (the general path)
+K6_SHAPES = [(19, 37), (181, 360), (721, 1440), (40, 1442), (24, 2880), (12, 4100)]
+
+
+def k6_plain_vmap(F, sigma, mode_lat, mode_lon):
+    """The plain version under torch.func.vmap, as the ensemble runs it."""
+    return torch.func.vmap(smooth.gaussian_filter_plain, in_dims=(0, None, None, None))(
+        F, sigma, mode_lat, mode_lon)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("sigma,mode_lat,mode_lon", K6_CALLS)
+@pytest.mark.parametrize("shape", K6_SHAPES, ids=[f"{h}x{w}" for h, w in K6_SHAPES])
+def test_gauss_sep_kernel_bit_equal(dev, dtype, sigma, mode_lat, mode_lon, shape):
+    """K6 through ``gaussian_filter``, one launch, equals the plain version on
+    the card bit for bit, NaN and ±inf planted next to the seam and on a
+    pole row: the 16-byte path, the per-column paths and the general path."""
+    F = gauss_field(dev, dtype, shape, plant=True)
+    before = kernels.launch_counts()["gauss_sep"]
+    got = smooth.gaussian_filter(F, sigma, mode_lat, mode_lon)
+    assert kernels.launch_counts()["gauss_sep"] == before + 1
+    ref = smooth.gaussian_filter_plain(F, sigma, mode_lat, mode_lon)
+    assert bit_equal(got, ref)
+    assert not torch.isfinite(ref).all() and torch.isfinite(ref).any()
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_gauss_sep_short_axes(dev, dtype):
+    """Axes shorter than the radius: nearest pads any length, reflect and
+    wrap up to the axis's own; bit-equal to the plain version."""
+    for shape, sigma, modes in [((3, 37), 1.0, ("nearest", "wrap")),
+                                ((4, 4), 1.0, ("reflect", "wrap")),
+                                ((1, 9), 1.0, ("nearest", "reflect")),
+                                ((40, 2), 0.2, ("wrap", "reflect"))]:
+        F = gauss_field(dev, dtype, shape, seed=15)
+        got = smooth.gaussian_filter(F, sigma, *modes)
+        assert bit_equal(got, smooth.gaussian_filter_plain(F, sigma, *modes)), (shape, modes)
+
+
+def test_gauss_sep_radius_zero_returns_the_field(dev):
+    """σ ≤ 0, or a σ whose radius int(4σ + 0.5) is 0, returns F itself and
+    launches nothing, as the plain version does."""
+    F = gauss_field(dev, torch.float32)
+    before = kernels.launch_counts()
+    for sigma in (0.0, -1.0, 0.1):
+        assert smooth.gaussian_filter(F, sigma) is F
+        assert smooth.gaussian_filter_plain(F, sigma) is F
+    assert kernels.launch_counts() == before
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("sigma,mode_lat,mode_lon", K6_CALLS[:2] + K6_CALLS[6:])
+@pytest.mark.parametrize("members", ["own", "shared", "sliced"])
+@pytest.mark.parametrize("shape", [(181, 360), (19, 37), (24, 2880)])
+def test_gauss_sep_batched_equals_single_calls(dev, dtype, sigma, mode_lat, mode_lon, members,
+                                               shape):
+    """The batched form for 3 members in one launch: each member equals its
+    single call and the plain version under vmap bit for bit; the members
+    are a stack of their own, one field for every member (stride 0), or the
+    planes of a larger [B, 2, H, W] stack read in place at its member
+    stride."""
+    B = 3
+    taps = smooth._gauss_kernel(sigma)
+    F = gauss_field(dev, dtype, shape, B=0 if members == "shared" else B, seed=16, plant=True)
+    if members == "sliced":
+        F = torch.stack([torch.zeros_like(F), F], dim=1)[:, 1]
+        assert not F.is_contiguous() and F[0].is_contiguous()
+    before = kernels.launch_counts()
+    got = gauss_sep.gaussian_filter_batched_cuda(F, taps, mode_lat, mode_lon, B)
+    after = kernels.launch_counts()
+    assert {k: after[k] - before[k] for k in after if after[k] != before[k]} == {
+        "gauss_sep_batched": 1}
+    stack = F.expand(B, *shape) if members == "shared" else F
+    assert bit_equal(got, k6_plain_vmap(stack, sigma, mode_lat, mode_lon))
+    for b in range(B):
+        one = gauss_sep.gaussian_filter_cuda(F if members == "shared" else F[b], taps, mode_lat,
+                                             mode_lon)
+        assert bit_equal(got[b], one), b
+
+
+def test_gauss_sep_vmap_reaches_the_batched_form(dev):
+    """``gaussian_filter`` under torch.func.vmap launches the batched form
+    once for every member and no single form, and copies no field (the
+    members a slice of a larger stack, as the step's advected cloud is); the
+    members equal the plain version's under vmap."""
+    F = gauss_field(dev, torch.float32, B=4, seed=17)
+    F = torch.stack([F, F], dim=1)[:, 0]
+    before = kernels.launch_counts()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        got = torch.func.vmap(lambda f: smooth.gaussian_filter(f, 0.2, "wrap", "wrap"))(F)
+    after = kernels.launch_counts()
+    assert {k: after[k] - before[k] for k in after if after[k] != before[k]} == {
+        "gauss_sep_batched": 1}
+    assert not [e.name for e in prof.events() if e.name in ("aten::copy_", "aten::clone")]
+    assert bit_equal(got, k6_plain_vmap(F, 0.2, "wrap", "wrap"))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_gauss_sep_backward_equals_plain_vjp(dev, dtype):
+    """The Function's VJP is the plain version's (``plain_vjp``): the same
+    numbers, and the backward launches nothing; the batched form refuses an
+    input that requires grad."""
+    F = gauss_field(dev, dtype, seed=18).requires_grad_(True)
+    before = kernels.launch_counts()["gauss_sep"]
+    out = smooth.gaussian_filter(F, 1.0)
+    ct = torch.randn(out.shape, generator=torch.Generator(device=dev).manual_seed(19),
+                     device=dev, dtype=torch.float64).to(dtype)
+    (got,) = torch.autograd.grad(out, F, ct)
+    (ref,) = torch.autograd.grad(smooth.gaussian_filter_plain(F, 1.0), F, ct)
+    assert kernels.launch_counts()["gauss_sep"] == before + 1
+    assert torch.equal(got, ref)
+    batched = torch.stack([F.detach(), F.detach()]).requires_grad_(True)
+    with pytest.raises(RuntimeError, match="batched kernel has no backward"):
+        torch.func.vmap(lambda f: smooth.gaussian_filter(f, 1.0))(batched)
+
+
+def test_gauss_sep_wrappers_refuse_bad_input(dev):
+    F = gauss_field(dev, torch.float32, (19, 37), B=2)
+    taps = smooth._gauss_kernel(1.0)
+    with pytest.raises(ValueError):      # a stack to the single form
+        gauss_sep.gaussian_filter_cuda(F, taps)
+    with pytest.raises(ValueError):      # 2 members, not 3
+        gauss_sep.gaussian_filter_batched_cuda(F, taps, "reflect", "reflect", 3)
+    with pytest.raises(ValueError):      # a plane not contiguous
+        gauss_sep.gaussian_filter_cuda(F[0][:, ::2], taps)
+    with pytest.raises(TypeError):
+        gauss_sep.gaussian_filter_cuda(F[0].half(), taps)
+    with pytest.raises(ValueError):      # an even number of taps
+        gauss_sep.gaussian_filter_cuda(F[0], taps[:-1])
+    with pytest.raises(ValueError):      # a radius above the kernel's 64
+        gauss_sep.gaussian_filter_cuda(F[0], smooth._gauss_kernel(17.0), "nearest", "nearest")
+    with pytest.raises(ValueError):
+        gauss_sep.gaussian_filter_cuda(F[0], taps, "mirror", "reflect")
+    for modes in (("reflect", "wrap"), ("wrap", "nearest")):   # r = 4 beyond 3 rows
+        with pytest.raises(ValueError):
+            gauss_sep.gaussian_filter_cuda(F[0, :3], taps, *modes)
+        with pytest.raises(RuntimeError):   # where the plain version fails too
+            smooth.gaussian_filter_plain(F[0, :3], 1.0, *modes)
+    with pytest.raises(ValueError):
+        gauss_sep.gaussian_filter_cuda(F[0, :, :3].contiguous(), taps, "nearest", "wrap")
+    with pytest.raises(ValueError):
+        gauss_sep.gaussian_filter_cuda(F[0].cpu(), taps)

@@ -237,6 +237,46 @@ def test_gaussian_filter_matches_jax(mode, rng):
         close(got, ref, 1e-14)
 
 
+class _Rank:
+    """A rank of a longitude mesh of two, as far as the dispatch looks."""
+    n, rank = 2, 0
+
+
+@pytest.mark.parametrize("device,mesh", [("cpu", None), ("cpu", _Rank()), ("card", None),
+                                         ("card", _Rank())],
+                         ids=["cpu", "cpu-mesh", "card", "card-mesh"])
+def test_gaussian_filter_dispatch(monkeypatch, rng, device, mesh):
+    """A CPU tensor and a mesh rank (whose lon pass pads with its
+    neighbours' columns) take the plain version with the mesh; a card's
+    tensor on one rank takes K6's Function (``use_kernel`` stubbed: no card
+    here). σ ≤ 0 and a radius of 0 take neither and return the field. On
+    the CPU the result is the plain version's."""
+    F = t64(rng.standard_normal((H, W)))
+    taken = []
+
+    def plain(F, sigma, mode_lat, mode_lon, truncate, mesh):
+        taken.append(("plain", (sigma, mode_lat, mode_lon, truncate), mesh))
+        return F
+
+    monkeypatch.setattr(tsmooth, "gaussian_filter_plain", plain)
+    monkeypatch.setattr(tsmooth.GaussianFilter, "apply",
+                        lambda F, *args: taken.append(("kernel", args, None)) or F)
+    if device == "card":
+        monkeypatch.setattr(tsmooth, "use_kernel", lambda t: True)
+    for sigma in (0.0, -1.0, 0.1, None):
+        assert tsmooth.gaussian_filter(F, sigma, mesh=mesh) is F
+    assert taken == []
+    tsmooth.gaussian_filter(F, 0.2, "wrap", "nearest", mesh=mesh)
+    path = "kernel" if device == "card" and mesh is None else "plain"
+    assert taken == [(path, (0.2, "wrap", "nearest", 4.0), mesh)]
+    if device == "cpu" and mesh is None:
+        monkeypatch.undo()
+        got = tsmooth.gaussian_filter(F, 1.0, "reflect", "wrap")
+        assert torch.equal(got, tsmooth.gaussian_filter_plain(F, 1.0, "reflect", "wrap"))
+        close(got, jsmooth.gaussian_filter(jnp.asarray(F.numpy()), 1.0, mode_lat="reflect",
+                                           mode_lon="wrap"), 1e-14)
+
+
 def test_area_means_match_oracle(rng, grids):
     """The float64 accumulator meets the bar the JAX float-float sums are
     held to (tests/test_ops.py::test_area_mean_compensated)."""
