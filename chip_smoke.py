@@ -147,28 +147,24 @@ Phases, each of which raises on failure (exit code non-zero):
      tensors through host memory (NCCL refuses two ranks on one device).
      The collectives sync with the host, so phase 10 does not run under
      sync-debug "error"; its times are of N ranks sharing one card, not a
-     scaling number. One spawn of 2 ranks and one of 4. 10.1: at 181×360 in
-     float32 and float64 each sharded op and form on the ranks' own columns
+     scaling number. One spawn of 2 ranks and one of 4. A rank launches K1,
+     K2 and K4 on their operands gathered whole and K3 on the padded block,
+     and runs the plain versions of K5 and K6. 10.1: at 181×360 in float32
+     and float64 each sharded op on the ranks' own columns
      (``par_sharded_ops``) against the whole grid's call on the card: the
      pads, the Gaussian filters (reflect and wrap seams), the gradients
      (one-sided seams), divergence, vorticity, ∇², Shapiro, the zonal FFT
-     filter, K1 on the gathered field, K2's sharded form and K3 on the
-     padded block (its static operands exchanged, and cut from the shard
-     grid's padded maps) bit-equal, and the static operands cut from the
-     padded maps equal to the exchanged ones; K4's sharded form and the ocean step within
-     phase 3's tolerances (the η mean's and the polar ring means' order of
-     summation), the area means within 1e-5 (float32) / 1e-12 (float64);
-     K2's and K4's sharded forms against their plain versions on the same
-     tensors; then each one's device ms a call at the 2- and 4-rank shard
-     shapes (one process, an inner rank's columns; K4's cross-rank sum its
-     own) beside its plain version on the shard and, for K2,
-     ``F.grid_sample``, with its bound. 10.2: the flagship planet (181×360
+     filter, K1, K2 and K4 on the gathered operands and K3 on the padded
+     block (its static operands exchanged, and cut from the shard grid's
+     padded maps) bit-equal, and K3's static maps in the padded maps equal
+     to the exchanged ones; the ocean step within phase 3's tolerances (the
+     polar ring means' order of summation), the area means within 1e-5
+     (float32) / 1e-12 (float64). 10.2: the flagship planet (181×360
      float32, every default on) sharded 2 and 4 ways, 12 warm steps then a
      timed day of 240 with the diags every 24 steps (QD_DIAG_EVERY: a
      rank-step's collectives are ~52 without the diags, ~118 with them):
-     K1, K2's sharded form, K3 and K4's sharded form launched 3, 3, 1 and 2
-     (its tile pass and its finish) times a rank-step on every rank and no
-     other form; the gathered state
+     K1, K2, K3 and K4 launched 3, 3, 1 and 1 times a rank-step on every
+     rank and no other kernel; the gathered state
      and the diags finite and physical, a routing event's closure; ms/step,
      and collectives, halo bytes, gathered bytes and all-reduced bytes a
      rank-step. 10.3 (4 ranks): the dry run (``parallel.dryrun``) at
@@ -196,12 +192,12 @@ Phases, each of which raises on failure (exit code non-zero):
 ``python3 chip_smoke.py --phase 3`` and ``--phase 4`` build the kernels and
 run that phase alone, without the record lines.
 The line before the last is the kernels' JSON record, the six single forms
-(launches from phase 4's main path), the six batched forms (launches from
-phase 4b's day at B = 8) and the sharded forms of K2 and K4 (launches from
-rank 0's day in 10.2 at 2 ranks); the last line is
+(launches from phase 4's main path) and the six batched forms (launches
+from phase 4b's day at B = 8); the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
+import dataclasses
 import functools
 import json
 import os
@@ -1269,20 +1265,18 @@ def routing_event_check(mdl, st, label):
 def path_counts(steps, form="", phyto=True):
     """Each wrapper's launches over ``steps`` steps of a path: the main
     path's 3, 3, 1, 1, 1 and 5 a step (K1–K6) of the forms named ``form``
-    ("" the single forms, "_batched" the batched ones, "_sharded" a rank of
-    the longitude mesh, which runs K2's and K4's sharded forms, K4's with two
-    launches a step, K1's and K3's single forms and K5's and K6's plain
-    versions), none of the others. ``phyto`` False: a path without the
-    phytoplankton, no K5."""
+    ("" the single forms, "_batched" the batched ones, "mesh" a rank of the
+    longitude mesh, which launches the single forms of K1–K4 only and runs
+    the plain versions of K5 and K6), none of the others. ``phyto`` False:
+    a path without the phytoplankton, no K5."""
     from qingdai_tpu_torch import kernels
 
-    sharded = {name: per_step for name, _, _, per_step in SHARDED_KERNELS}
     want = {}
-    k5 = [PHYTO_KERNEL] if phyto and form != "_sharded" else []
-    k6 = [GAUSS_KERNEL] if form != "_sharded" else []
-    for name, _, _, per_step in KERNELS + k5 + k6:
-        key = name + form if name + form in kernels.wrappers() else name
-        want[key] = sharded.get(key, per_step) * steps
+    for name, _, _, per_step in KERNELS + ([PHYTO_KERNEL] if phyto else []) + [GAUSS_KERNEL]:
+        if form != "mesh":
+            want[name + form] = per_step * steps
+        elif name in MESH_KERNELS:
+            want[name] = per_step * steps
     return {k: want.get(k, 0) for k in kernels.wrappers()}
 
 
@@ -2727,31 +2721,30 @@ PAR_WARM = 12                   # steps before 10.2's timed day
 PAR_DIAG_EVERY = 24
 PAR_ENS_B, PAR_ENS_STEPS = 8, 24
 PAR_DRYRUN_SEGS = 3
-# (sharded form, CUDA source, TPU kernel it replaces, launches a rank-step:
-# K4's form launches its tile pass and its finish once each a substep)
-SHARDED_KERNELS = [
-    ("advect_bilinear_sharded", "qingdai_tpu_torch/csrc/advect_bilinear.cu",
-     "qingdai_tpu/ops/pallas_advect.py:65", 3),
-    ("ocean_substeps_sharded", "qingdai_tpu_torch/csrc/ocean_substeps.cu",
-     "qingdai_tpu/ops/pallas_ocean.py:200", 2),
-]
+# the kernels a rank of the longitude mesh launches, in their single forms:
+# K1, K2 and K4 on their operands gathered whole, K3 on the padded block
+# (``ops.members``)
+MESH_KERNELS = ("median_pos", "advect_bilinear", "hyper4", "ocean_substeps")
 # 10.1: the results that equal the whole grid's bit for bit, and the
-# tolerances of the others (of each result's max |value|): K4's planes as in
-# phase 3 (the η mean's order of summation), the area means theirs
+# tolerances of the others (of each result's max |value|): the ocean step's
+# planes as K4's in phase 3 (the polar ring means' order of summation), the
+# area means theirs
 PAR_EXACT = ("pad_wrap", "pad_reflect", "pad_nearest", "gauss_reflect", "gauss_wrap",
              "grad_lon", "grad_lat", "div", "vort", "lap", "shapiro", "spectral", "hyper4",
-             "hyper4_grid", "advect", "median")
+             "hyper4_grid", "advect", "median", "k4_mom_1", "k4_st_1", "k4_mom_2", "k4_st_2")
+# K3's substeps on the shard grid's padded maps (``hyper4_grid``): the
+# padded maps of a config with this ``dynamics.k4_nsub``
+PAR_GRID_NSUB = 2
 PAR_TOL = {"float32": 1e-4, "float64": 1e-12}
 PAR_MEAN_TOL = {"float32": 1e-5, "float64": 1e-12}
 
 
 # The sharded ops of 10.1 (and of tests/test_torch_parallel.py) on one set of
 # inputs: on a rank's columns (``par_sharded_ops``) and on the whole grid
-# (``par_whole_ops``). Every result but the pads and the η mean's
-# consequences is bit-equal to the whole grid's: a halo, a gather and a
-# kernel move or compute the same values in the same order. The η mean of
-# K4 (and through it η) differs by its order of summation, and the means by
-# theirs.
+# (``par_whole_ops``). Every result but the pads, the means and the ocean
+# step's polar ring means is bit-equal to the whole grid's: a halo, a
+# gather and a kernel move or compute the same values in the same order.
+# The means and the ring means differ by their order of summation.
 PAR_PAD = 3                     # the pads' columns
 PAR_MODES = ("wrap", "reflect", "nearest")
 PAR_TRACERS = 10                # chlorophyll planes riding K4's gather
@@ -2792,22 +2785,21 @@ def par_op_inputs(n_lat: int, n_lon: int, seed: int = 0) -> dict:
     }
 
 
-def par_ops(grid, mesh, t: dict, cfg, plain_too: bool) -> dict:
+def par_ops(grid, mesh, t: dict, cfg) -> dict:
     """The ops on tensors ``t`` (the rank's columns, or the whole grid with
-    ``mesh`` None). On a rank also ``padded_operands``: how many ranks made
-    a static operand from the shard grid's padded maps (K3's ∇⁴ maps and
-    cos map, K4's ``forc`` and ``geo``) that differs from the exchanged one."""
+    ``mesh`` None). On a rank also ``padded_operands``: how many ranks hold
+    a static map of K3's (the ∇⁴ map or the cos map) in the shard grid's
+    padded maps that differs from the exchanged one."""
     from qingdai_tpu_torch import constants as const
     from qingdai_tpu_torch.grid import divergence, grad_lonlat, vorticity
-    from qingdai_tpu_torch.ocean import (_substeps, ocean_step, ocean_substeps,
-                                         ocean_substeps_sharded, sharded_pad, substep_operands)
-    from qingdai_tpu_torch.ops.advect import advect_semilag_multi, advect_semilag_multi_ref
+    from qingdai_tpu_torch.ocean import ocean_step, ocean_substeps, substep_operands
+    from qingdai_tpu_torch.ops.advect import advect_semilag_multi
     from qingdai_tpu_torch.ops.reductions import (area_mean, area_mean_compensated,
                                                   masked_median_of_positive)
     from qingdai_tpu_torch.ops.smooth import gaussian_filter
     from qingdai_tpu_torch.ops.stencil import (hyperdiffuse_multi, laplacian_sphere,
                                                shapiro_filter, spectral_zonal_filter)
-    from qingdai_tpu_torch.parallel.halo import all_gather_lon, all_reduce_sum, pad_lon, single
+    from qingdai_tpu_torch.parallel.halo import all_reduce_sum, pad_lon, single
     from qingdai_tpu_torch.state import OceanState
 
     a, dlat, dlon = const.PLANET_RADIUS, grid.dlat_rad, grid.dlon_rad
@@ -2828,7 +2820,8 @@ def par_ops(grid, mesh, t: dict, cfg, plain_too: bool) -> dict:
     gs = grid.padded if grid.padded is not None else grid
     coef = torch.tensor([1.0, 1.0, 0.5], dtype=F.dtype, device=F.device)[:, None, None]
     out["hyper4_grid"] = hyperdiffuse_multi(stack, (0.02 * gs.k4_map_unit / 300.0)[None] * coef,
-                                            300.0, 2, dlat, dlon, gs.coslat_cap_02, a, mesh)
+                                            300.0, PAR_GRID_NSUB, dlat, dlon,
+                                            gs.coslat_cap_02, a, mesh)
     adv_args = (u, v, 300.0, a, dlat, dlon, grid.coslat_cap_tiny)
     out["advect"] = advect_semilag_multi(stack[:2].contiguous(), *adv_args, mesh)
     out["median"] = masked_median_of_positive(t["pos"], 1e-6, mesh)
@@ -2838,33 +2831,18 @@ def par_ops(grid, mesh, t: dict, cfg, plain_too: bool) -> dict:
     ocfg = cfg.ocean
     land = t["land"]
     ocn = OceanState(uo=t["uo"], vo=t["vo"], eta=t["eta"], sst=t["sst"])
-    pad, differ = sharded_pad(ocfg), 0
-    if not single(mesh):
-        differ += not torch.equal(grid.padded_by(4).coslat_cap_02,
-                                  pad_lon(grid.coslat_cap_02, 4, "wrap", mesh))
     for n_sub, tracers in ((1, t["tracers"]), (2, None)):
-        ops = substep_operands(grid, ocfg, land, ocn, u, v, t["Q"], t["ice"], 300.0, n_sub,
-                               tracers)
-        mom, st, forc, geo, params = ops
-        if single(mesh):
-            res = ocean_substeps(mom, st, forc, geo, **params)
-        else:
-            _, _, forc_p, geo_p, _ = substep_operands(grid, ocfg, land, ocn, u, v, t["Q"],
-                                                      t["ice"], 300.0, n_sub, tracers, pad)
-            differ += not (torch.equal(forc_p, pad_lon(forc, pad, "wrap", mesh))
-                           and torch.equal(geo_p, pad_lon(geo, pad, "wrap", mesh)))
-            res = ocean_substeps_sharded(mom, st, forc_p, geo_p, mesh, **params)
-        out[f"k4_mom_{n_sub}"], out[f"k4_st_{n_sub}"] = res
-        if plain_too:
-            out[f"k4_mom_{n_sub}_plain"], out[f"k4_st_{n_sub}_plain"] = _substeps(
-                mom, st, forc, geo, **params, mesh=mesh)
+        mom, st, forc, geo, params = substep_operands(grid, ocfg, land, ocn, u, v, t["Q"],
+                                                      t["ice"], 300.0, n_sub, tracers)
+        out[f"k4_mom_{n_sub}"], out[f"k4_st_{n_sub}"] = ocean_substeps(mom, st, forc, geo,
+                                                                       mesh=mesh, **params)
     if not single(mesh):
+        p = (grid.padded.width - grid.width) // 2
+        differ = not all(torch.equal(getattr(grid.padded, k),
+                                     pad_lon(getattr(grid, k), p, "wrap", mesh))
+                         for k in ("k4_map_unit", "coslat_cap_02"))
         out["padded_operands"] = all_reduce_sum(
             torch.tensor(float(differ), dtype=torch.float64, device=F.device), mesh)
-    if plain_too:
-        lon0 = 0 if single(mesh) else mesh.rank * F.shape[-1]
-        out["advect_plain"] = advect_semilag_multi_ref(
-            all_gather_lon(stack[:2].contiguous(), mesh), *adv_args, lon0)
     ocn2, _ = ocean_step(grid, ocfg, land, ocn, u, v, t["Q"], t["ice"], 0, 300.0, 1)
     for f in ("uo", "vo", "eta", "sst"):
         out[f"ocean_{f}"] = getattr(ocn2, f)
@@ -2890,18 +2868,16 @@ def par_whole_ops(inputs: dict, device="cpu", dtype=torch.float64) -> dict:
 
     n_lat, n_lon = np.asarray(inputs["F"]).shape
     grid = make_grid(n_lat, n_lon, device=device, dtype=dtype)
-    out = par_ops(grid, None, par_tensors(inputs, grid.lat.device, dtype), SimConfig.from_env(),
-                  False)
+    out = par_ops(grid, None, par_tensors(inputs, grid.lat.device, dtype), SimConfig.from_env())
     return {k: v.cpu().numpy() for k, v in out.items()}
 
 
-def par_sharded_ops(mesh, inputs: dict, dtype_names=("float64",), plain_too: bool = False):
+def par_sharded_ops(mesh, inputs: dict, dtype_names=("float64",)):
     """The ops on this rank's columns of ``inputs`` in each dtype of
     ``dtype_names``, each result gathered whole (a pad: every rank's padded
-    block side by side), on a shard grid with the model's padded maps
-    (``static_pad``); rank 0 returns {dtype name: {op: numpy}}, the others
-    None. ``plain_too`` adds the plain versions of K2's and K4's sharded
-    forms on the same tensors."""
+    block side by side), on a shard grid with the padded maps of a config
+    whose dynamics runs ``PAR_GRID_NSUB`` ∇⁴ substeps (``static_pad``);
+    rank 0 returns {dtype name: {op: numpy}}, the others None."""
     from qingdai_tpu_torch.config import SimConfig
     from qingdai_tpu_torch.grid import make_grid
     from qingdai_tpu_torch.parallel.halo import all_gather_lon
@@ -2909,29 +2885,27 @@ def par_sharded_ops(mesh, inputs: dict, dtype_names=("float64",), plain_too: boo
 
     n_lat, n_lon = np.asarray(inputs["F"]).shape
     cfg = SimConfig.from_env()
+    pad = static_pad(dataclasses.replace(
+        cfg, dynamics=dataclasses.replace(cfg.dynamics, k4_nsub=PAR_GRID_NSUB)))
     res = {}
     for name in dtype_names:
         dtype = getattr(torch, name)
-        grid = shard_grid(make_grid(n_lat, n_lon, device=mesh.device, dtype=dtype), mesh,
-                          static_pad(cfg))
+        grid = shard_grid(make_grid(n_lat, n_lon, device=mesh.device, dtype=dtype), mesh, pad)
         t = par_tensors(inputs, mesh.device, dtype, cols=(grid.lon0, grid.width))
-        out = par_ops(grid, mesh, t, cfg, plain_too)
+        out = par_ops(grid, mesh, t, cfg)
         res[name] = {k: (all_gather_lon(v, mesh) if v.dim() else v).cpu().numpy()
                      for k, v in out.items()}
     return res if mesh.rank == 0 else None
 
 
-def par_rank(mesh, inputs, day_steps, ens_members, dryrun_segs, rate):
-    """One rank of phase 10: 10.1's ops in float32 and float64 (with the
-    plain versions of K2's and K4's sharded forms), 10.2's day, then 10.4's
-    member mesh (``ens_members`` > 0) or 10.3's dry run (``dryrun_segs`` >
-    0); with ``rate`` (the card's copy rate), 10.1's times on rank 0 while
-    the other ranks wait at a barrier. Rank 0 returns every result; the
-    others their launch counts."""
-    import torch.distributed as dist
+def par_rank(mesh, inputs, day_steps, ens_members, dryrun_segs):
+    """One rank of phase 10: 10.1's ops in float32 and float64, 10.2's day,
+    then 10.4's member mesh (``ens_members`` > 0) or 10.3's dry run
+    (``dryrun_segs`` > 0). Rank 0 returns every result; the others their
+    launch counts."""
     from qingdai_tpu_torch.parallel import dryrun
 
-    out = {"ops": par_sharded_ops(mesh, inputs, ("float32", "float64"), plain_too=True),
+    out = {"ops": par_sharded_ops(mesh, inputs, ("float32", "float64")),
            "day": par_day(mesh, day_steps)}
     if ens_members:
         out["ens"] = par_ens(mesh, ens_members, PAR_ENS_STEPS)
@@ -2939,11 +2913,6 @@ def par_rank(mesh, inputs, day_steps, ens_members, dryrun_segs, rate):
         t0 = time.perf_counter()
         out["dryrun"] = dryrun.dryrun_rank(mesh, H, W, dryrun_segs)
         out["dryrun"]["seconds"] = time.perf_counter() - t0
-    if rate:
-        dist.barrier()
-        if mesh.rank == 0:
-            out["times"] = sharded_times(mesh.device, rate)
-        dist.barrier()
     return out
 
 
@@ -3006,112 +2975,9 @@ def par_ens(mesh, B, steps):
             "X": A.gather_fields(whole, ASSIM_FIELDS).cpu(), "seconds": time.perf_counter() - t0}
 
 
-def wrap_cols(x, lon0, w, pad):
-    """Columns lon0 − pad .. lon0 + w + pad − 1 of x, wrapped: the rank's
-    padded block as the halo exchange makes it."""
-    n = x.shape[-1]
-    idx = torch.remainder(torch.arange(lon0 - pad, lon0 + w + pad, device=x.device), n)
-    return x.index_select(-1, idx).contiguous()
-
-
-def reached_cells(dj, di, H, W) -> int:
-    """How many cells of an [H, W] field bilinear interpolation at the
-    fractional indices (dj, di) reads: each point's four corners, wrapped,
-    counted once."""
-    j0 = torch.remainder(torch.floor(dj).to(torch.int64), H)
-    i0 = torch.remainder(torch.floor(di).to(torch.int64), W)
-    hit = torch.zeros(H * W, dtype=torch.bool, device=dj.device)
-    for dj_, di_ in ((0, 0), (0, 1), (1, 0), (1, 1)):
-        hit[(torch.remainder(j0 + dj_, H) * W + torch.remainder(i0 + di_, W)).reshape(-1)] = True
-    return int(hit.sum())
-
-
-def sharded_times(dev, rate) -> list:
-    """10.1's times, on a rank whose process has taken no profile before
-    (torch.profiler loses device events more often as a process takes many
-    profiles: an empty profile in phase 9.3 of a whole run, and three in a
-    row for the 4-rank shard at the end of one): K2's and K4's sharded forms
-    at the 2- and 4-rank shard shapes in float32 (K4's cross-rank sum the
-    rank's own), beside their plain versions on the same shard and, for K2,
-    ``F.grid_sample``; device ms a call and the bound. Returns one row a form
-    and shape."""
-    from qingdai_tpu_torch import constants as const
-    from qingdai_tpu_torch.grid import make_grid
-    from qingdai_tpu_torch.kernels.advect_bilinear import advect_bilinear_sharded_cuda
-    from qingdai_tpu_torch.kernels.ocean_substeps import halo, ocean_substep_sharded_cuda
-    from qingdai_tpu_torch.ocean import ocean_substeps_plain
-    from qingdai_tpu_torch.ops import advect
-
-    dtype, f4 = torch.float32, 4
-    r = np.random.default_rng(10)
-    g = make_grid(H, W, device=dev, dtype=dtype)
-    F = on(dev, 280.0 + 20.0 * r.standard_normal((2, H, W)), dtype)
-    u = on(dev, np.clip(30.0 * r.standard_normal((H, W)), -200, 200), dtype)
-    v = on(dev, np.clip(20.0 * r.standard_normal((H, W)), -200, 200), dtype)
-    mom, st, forc, geo, params = k4_operands(dev, dtype, N_SPECIES, 1, 1, 0.0)
-    hc = halo(params["k4_nsub"])[1]
-    n_st = st.shape[0]
-    rows = []
-    for n in PAR_RANKS:
-        w = W // n
-        lon0 = (n // 2) * w            # an inner rank: neither seam
-        us, vs, cs = (x[:, lon0:lon0 + w].contiguous() for x in (u, v, g.coslat_cap_tiny))
-        args = (300.0, const.PLANET_RADIUS, g.dlat_rad, g.dlon_rad, cs)
-        k2 = lambda: advect_bilinear_sharded_cuda(F, us, vs, *args, lon0)
-        k2_plain = lambda: advect.advect_semilag_multi_ref(F, us, vs, *args, lon0)
-        dj, di = advect.departure_indices((H, w), us, vs, *args, dtype, lon0)
-        lib = grid_sample_call(F, dj, di)
-        if not torch.equal(k2(), k2_plain()):
-            raise AssertionError(f"10.1: K2's sharded form at {n} ranks differs from its plain "
-                                 "version")
-        pads = [wrap_cols(x, lon0, w, hc) for x in (mom, forc, geo)]
-        own = [x[..., lon0:lon0 + w].contiguous() for x in (mom, st, forc, geo)]
-        k4 = lambda: ocean_substep_sharded_cuda(pads[0], st, pads[1], pads[2], pad=hc,
-                                                lon0=lon0, reduce_sums=lambda s: s, **params)
-        k4_plain = lambda: ocean_substeps_plain(*own, **params)
-        p1 = device_ms(k2_plain, what=f"K2 sharded plain {n}")
-        t_k2 = statistics.median([device_ms(k2, what=f"K2 sharded {n}") for _ in range(2)])
-        p2 = device_ms(k2_plain, what=f"K2 sharded plain {n}")
-        t_lib = device_ms(lib, what=f"grid_sample {n}")
-        q1 = device_ms(k4_plain, what=f"K4 sharded plain {n}")
-        t_k4 = statistics.median([device_ms(k4, what=f"K4 sharded {n}") for _ in range(2)])
-        q2 = device_ms(k4_plain, what=f"K4 sharded plain {n}")
-        cells = H * w
-        # the stack's cells that the departure points' corners reach, each
-        # once; the winds, the cos map and the output
-        b2 = bound((2 * reached_cells(dj, di, H, W) + 3 * cells + 2 * cells) * f4,
-                   (19 + 2 * 7) * cells, rate)
-        # st's owned and pad columns: at ocean speeds K4's departure points
-        # lie within a column of their cells (its cos cap is 0.5), so its
-        # gather reads no further
-        b4 = bound(((3 + 3 + 12 + n_st) * H * (w + 2 * hc) + (3 + n_st) * cells) * f4,
-                   (60 + 3 * 70 + 7 * n_st + 60) * cells, rate)
-        rows += [("advect_bilinear_sharded", n, w, t_k2, statistics.median([p1, p2]), t_lib, b2),
-                 ("ocean_substeps_sharded", n, w, t_k4, statistics.median([q1, q2]), None, b4)]
-    rows.append(("empty profiles", PROFILE_LOG["taken"], len(PROFILE_LOG["empty"])))
-    return rows
-
-
-def phase10_times(rows, label, rec, errs):
-    """10.1's time lines, and the sharded forms' records from the 2-rank
-    shard (``sharded_times``' rows)."""
-    *rows, (_, taken, empty) = rows
-    for name, n, w, t, plain, lib_ms, bd in rows:
-        print(f"time {name} at {n} ranks [{H}, {w}] f32: {t:.5f} device ms a call "
-              f"(plain {plain:.5f}" + (f", F.grid_sample {lib_ms:.5f}" if lib_ms else "")
-              + f"); bound {bd['bound_ms']:.5f} ms by {bd['bound_by']} [{label}]", flush=True)
-        if n == PAR_RANKS[0]:
-            rec[name] = {"max_abs_err": errs[name], "ms": t, "plain_ms": plain,
-                         "bound_ms": bd["bound_ms"], "bound_by": bd["bound_by"],
-                         "library_ms": lib_ms}
-    print(f"10.1 times in rank 0 of the 2-rank spawn: {empty} of {taken} profiles held no "
-          f"device event (each taken again)")
-
-
-def phase10_ops(n, got, whole, errs, label):
+def phase10_ops(n, got, whole, label):
     """10.1: every sharded op of ``n`` ranks (``got``, by dtype) against the
-    whole grid's kernel call (``whole``), and K2's and K4's sharded forms
-    against their plain versions; the largest of those into ``errs``."""
+    whole grid's kernel call (``whole``)."""
     w = W // n
     for name, ops in got.items():
         if ops["padded_operands"] != 0:
@@ -3137,33 +3003,18 @@ def phase10_ops(n, got, whole, errs, label):
                 if not e <= tol:
                     raise AssertionError(f"10.1 {n} ranks {name}: {k} plane {i} differs by "
                                          f"{e:.3e} of its max (bound {tol:g})")
-        e2 = float(np.abs(ops["advect"] - ops["advect_plain"]).max())
-        e4 = max(float(np.abs(ops[f"k4_{p}_{s}"] - ops[f"k4_{p}_{s}_plain"]).max())
-                 / max(float(np.abs(ops[f"k4_{p}_{s}_plain"]).max()), 1e-30)
-                 for p in ("mom", "st") for s in (1, 2))
-        if not e2 <= PAR_TOL[name] * float(np.abs(ops["advect_plain"]).max()):
-            raise AssertionError(f"10.1 {n} ranks {name}: K2 sharded against plain {e2}")
-        if not e4 <= PAR_TOL[name]:
-            raise AssertionError(f"10.1 {n} ranks {name}: K4 sharded against plain {e4}")
-        errs["advect_bilinear_sharded"] = max(errs["advect_bilinear_sharded"], e2)
-        errs["ocean_substeps_sharded"] = max(
-            errs["ocean_substeps_sharded"],
-            max(float(np.abs(ops[f"k4_{p}_1"] - ops[f"k4_{p}_1_plain"]).max())
-                for p in ("mom", "st")))
-        print(f"10.1 {n} ranks {H}x{W} {name}: halo ops, K1 (median on the gathered field), "
-              f"K2 (sharded form), K3 (padded) and the Gaussian, Shapiro, spectral, gradient, "
-              f"divergence and vorticity ops bit-equal to the whole grid's ({len(PAR_EXACT)} "
-              f"results); K4 and the ocean step (relative to each plane's max): "
-              + ", ".join(f"{k} {e:.2e}" for k, e in worst.items())
-              + f"; K2 sharded against its plain version max|err| {e2:.3e}, K4 sharded against "
-              f"its plain version {e4:.2e} of max [{label}]", flush=True)
+        print(f"10.1 {n} ranks {H}x{W} {name}: halo ops, K1, K2 and K4 on the gathered "
+              f"operands, K3 (padded) and the Gaussian, Shapiro, spectral, gradient, divergence "
+              f"and vorticity ops bit-equal to the whole grid's ({len(PAR_EXACT)} results); the "
+              f"ocean step and the means (relative to each plane's max): "
+              + ", ".join(f"{k} {e:.2e}" for k, e in worst.items()) + f" [{label}]", flush=True)
 
 
 def phase10_day(n, res, label):
     """10.2's checks and lines of ``n`` ranks' results."""
     from qingdai_tpu_torch.physics.orbital import T_PLANET
 
-    want = path_counts(STEPS_PER_DAY, "_sharded")
+    want = path_counts(STEPS_PER_DAY, "mesh")
     for rank, r_ in enumerate(res):
         if r_["day"]["counts"] != want:
             raise AssertionError(f"10.2 {n} ranks: rank {rank} launched {r_['day']['counts']} "
@@ -3174,9 +3025,8 @@ def phase10_day(n, res, label):
     syh = 3600.0 / (ms / 1000.0) * 300.0 / T_PLANET
     print(f"10.2 flagship {H}x{W} f32 sharded over {n} ranks ({r0['width']} columns a rank, "
           f"gloo on one card): a day of {STEPS_PER_DAY} steps after {PAR_WARM}, diags every "
-          f"{PAR_DIAG_EVERY}; launches a rank-day {r0['counts']} (K1 3, K2 sharded 3, K3 1, "
-          f"K4 sharded 2 a rank-step: its tile pass and its finish); Ts_mean {r0['ts']:.3f} K, "
-          f"T_s in "
+          f"{PAR_DIAG_EVERY}; launches a rank-day {r0['counts']} (K1 3, K2 3, K3 1 and K4 1 a "
+          f"rank-step, K5's and K6's plain versions); Ts_mean {r0['ts']:.3f} K, T_s in "
           f"[{r0['ts_field'][0]:.2f}, {r0['ts_field'][1]:.2f}] K, TOA_net {r0['toa']:.3f} "
           f"W/m2, u_max {r0['umax']:.2f} m/s, last event routed {r0['routed']:.4e} kg; all "
           f"leaves and diags finite", flush=True)
@@ -3185,7 +3035,6 @@ def phase10_day(n, res, label):
           f"{per['halo_bytes'] / 1e3:.1f} kB, gathered {per['gather_bytes'] / 1e3:.1f} kB, "
           f"all-reduced {per['reduce_bytes']:.0f} B received; build {r0['build_s']:.1f} s "
           f"[{label}]", flush=True)
-    return r0["counts"]
 
 
 def phase10_members(dev, ens, label):
@@ -3233,30 +3082,23 @@ def phase10_members(dev, ens, label):
         raise AssertionError("10.4: equal ensembles gave different analyses")
 
 
-def phase10_parallel(dev, label, rate, rec):
-    """Phase 10 (module docstring): 10.1 the sharded ops and forms, 10.2 the
-    flagship planet sharded for a day, 10.3 the dry run, 10.4 the member
-    mesh. Returns the sharded forms' launch counts from 10.2's 2-rank day."""
+def phase10_parallel(dev, label):
+    """Phase 10 (module docstring): 10.1 the sharded ops, 10.2 the flagship
+    planet sharded for a day, 10.3 the dry run, 10.4 the member mesh."""
     from qingdai_tpu_torch.parallel.mesh import spawn_ranks
 
     started = time.perf_counter()
     inputs = par_op_inputs(H, W, seed=10)
     whole = {name: par_whole_ops(inputs, "cuda", getattr(torch, name)) for name in PAR_TOL}
-    errs = {"advect_bilinear_sharded": 0.0, "ocean_substeps_sharded": 0.0}
-    counts_2 = None
     for n in PAR_RANKS:
         t0 = time.perf_counter()
-        # the 2-rank spawn also times the sharded forms (on rank 0)
-        ens_b, segs, t_rate = (PAR_ENS_B, 0, rate) if n == 2 else (0, PAR_DRYRUN_SEGS, 0.0)
-        res = spawn_ranks(par_rank, n, "gloo", "cuda",
-                          (inputs, STEPS_PER_DAY, ens_b, segs, t_rate))
+        ens_b, segs = (PAR_ENS_B, 0) if n == 2 else (0, PAR_DRYRUN_SEGS)
+        res = spawn_ranks(par_rank, n, "gloo", "cuda", (inputs, STEPS_PER_DAY, ens_b, segs))
         print(f"phase 10: {n} ranks in {time.perf_counter() - t0:.1f} s (spawn included)")
-        phase10_ops(n, res[0]["ops"], whole, errs, label)
-        counts = phase10_day(n, res, label)
-        counts_2 = counts_2 or counts
+        phase10_ops(n, res[0]["ops"], whole, label)
+        phase10_day(n, res, label)
         if ens_b:
             phase10_members(dev, [r["ens"] for r in res], label)
-            times = res[0]["times"]
         if segs:
             dr = res[0]["dryrun"]
             print(f"10.3 dry run {dr['grid']} f64 over {dr['n_ranks']} ranks (gloo, one card), "
@@ -3267,9 +3109,7 @@ def phase10_parallel(dev, label, rate, rec):
                               for s in dr["segments"])
                   + f"; routed {dr['routed_mass_kg']:.4e} kg; Ts [{dr['ts_min_K']:.1f}, "
                   f"{dr['ts_max_K']:.1f}] K; {dr['seconds']:.1f} s [{label}]", flush=True)
-    phase10_times(times, label, rec, errs)
     print(f"phase 10: {time.perf_counter() - started:.1f} s")
-    return {name: counts_2[name] for name, *_ in SHARDED_KERNELS}
 
 
 # ------------------------------------------------------------- phase 11
@@ -3531,7 +3371,7 @@ def main(argv=None):
         print(f"chip_smoke: phase 9 alone in {time.perf_counter() - started:.1f} s; card: {label}")
         return 0
     if only == "10":
-        phase10_parallel(dev, label, rate, {})
+        phase10_parallel(dev, label)
         print(f"chip_smoke: phase 10 alone in {time.perf_counter() - started:.1f} s; card: "
               f"{label}")
         return 0
@@ -3554,7 +3394,7 @@ def main(argv=None):
     _, build_ms = phase8_analysis(label)
     phase8_osse(label, build_ms)
     phase9_spinup(label)
-    counts.update(phase10_parallel(dev, label, rate, rec))
+    phase10_parallel(dev, label)
     phase11_tools(dev, label)
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -3562,9 +3402,6 @@ def main(argv=None):
                      "launches": counts[name + form], **{k: rec[name + form][k] for k in keys}}
                     for form in ("", "_batched")
                     for name, src, rep, _ in KERNELS + [PHYTO_KERNEL, GAUSS_KERNEL]]
-    kernels_line += [{"name": name, "route": "cuda", "source": src, "replaces": rep,
-                      "launches": counts[name], **{k: rec[name][k] for k in keys}}
-                     for name, src, rep, _ in SHARDED_KERNELS]
     print(f"torch.profiler: {len(PROFILE_LOG['empty'])} of {PROFILE_LOG['taken']} profiles held "
           f"no device event; timed with CUDA events instead: {PROFILE_LOG['events']}")
     print(f"chip_smoke: phases 1-11 in {time.perf_counter() - started:.1f} s")

@@ -56,27 +56,6 @@ class Grid:
     def shape(self):
         return (self.n_lat, self.width or self.n_lon)
 
-    def padded_by(self, h: int) -> "Grid":
-        """A shard's maps over its columns padded by ``h`` on each side, cut
-        from ``padded`` (no exchange): a Grid whose ``lon0`` is the first
-        column held, wrapped, and whose ``width`` is ``width + 2·h``."""
-        if self.padded is None:
-            raise ValueError("this grid holds no padded maps (parallel.mesh.shard_grid's pad)")
-        p = (self.padded.width - self.width) // 2
-        if not 0 <= h <= p:
-            raise ValueError(f"a pad of {h} columns exceeds the shard's padded maps' {p}")
-        wp = self.padded.width
-
-        def crop(t):
-            if isinstance(t, torch.Tensor) and t.dim() and t.shape[-1] == wp:
-                return t[..., p - h:p + self.width + h]
-            return t
-
-        return dataclasses.replace(
-            self.padded, lat=self.lat, lon0=self.lon0 - h, width=self.width + 2 * h,
-            **{f.name: crop(getattr(self.padded, f.name)) for f in dataclasses.fields(self)
-               if isinstance(getattr(self.padded, f.name), torch.Tensor) and f.name != "lat"})
-
 
 def resolve_device(device) -> torch.device:
     """The device the caller asked for. Every entry point defaults to

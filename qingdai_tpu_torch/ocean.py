@@ -10,16 +10,13 @@ gather. With Shapiro on or another ∇⁴ cadence the same loop runs unfused,
 reaching kernels K2 (advection) and K3 (∇⁴) through ``ops``, as the JAX
 package keeps its scan for those structures.
 
-On a rank of the longitude mesh (``grid.mesh``) the fused loop runs K4's
-sharded form (``ocean_substeps_sharded``): each substep exchanges the halo
-of ``mom``, gathers ``st`` whole, and launches the tile pass and the finish
-around the cross-rank η sums; ``forc`` and the land and ice masks are
-exchanged once a step, and ``geo``'s maps come from the shard grid's padded
-maps.
-The unfused loop reaches K2, K3 and Shapiro through their mesh forms, and
-the plain version of either is ``_substeps`` with the mesh. The polar ring
-means add their masked sums and counts across ranks; rows are whole, so
-the rolls that wrap across the poles stay local.
+On a rank of the longitude mesh (``grid.mesh``) the fused loop gathers its
+four stacks whole in one collective, runs the whole grid's call (K4 on a
+card) and keeps the rank's columns, bit-equal to one rank's run. The
+unfused loop is ``_substeps`` with the mesh on the rank's columns, reaching
+K2, K3 and Shapiro through their mesh forms. The polar ring means add their
+masked sums and counts across ranks; rows are whole, so the rolls that wrap
+across the poles stay local.
 """
 
 from __future__ import annotations
@@ -32,15 +29,13 @@ from . import constants as const
 from .config import OceanConfig
 from .grid import Grid
 from .kernels import use_kernel
-from .kernels.ocean_substeps import halo
 from .ops import safegrad
 from .ops.members import plain_vjp, refuse_grad, to_front
 from .ops.advect import advect_semilag_multi, bilinear_wrap_gather_multi, departure_indices
 from .ops.reductions import area_mean
 from .ops.stencil import (hyperdiffuse_multi, hyperdiffuse_multi_ref, laplacian_sphere,
                           shapiro_filter_multi)
-from .parallel.halo import (all_gather_lon, all_reduce_sum, gmax, gmin, gsum, gsums,
-                            lon_neighbours, pad_lon, single)
+from .parallel.halo import all_gather_lon, gmax, gmin, gsum, gsums, lon_neighbours, single
 from .physics.energy import pow4
 from .state import OceanState
 
@@ -138,10 +133,10 @@ def _substeps(mom, st, forc, geo, *, n_sub, k4_nsub, sub_dt, H_m, r_bot, g, a, d
     """The substep loop over stacks (see :func:`ocean_substeps_plain`).
 
     ``diffuse`` and ``shapiro_n`` give the unfused structures; ``plain``
-    picks the plain gather and ∇⁴ (False: the ``ops`` functions, which
-    launch K2 and K3 on a card). On a rank of ``mesh`` the stacks are the
-    rank's columns and every lon neighbour, gather and sum reaches across
-    ranks."""
+    picks the plain gather and ∇⁴ on one rank (False: the ``ops``
+    functions, which launch K2 and K3 on a card). On a rank of ``mesh``
+    (``plain`` False) the stacks are the rank's columns and every lon
+    neighbour, gather and sum reaches across ranks."""
     f, cos05, cos_raw, cos_tiny = geo[GEO_F], geo[GEO_COS05], geo[GEO_COS], geo[GEO_COS_TINY]
     r_extra, w_ocean = geo[GEO_R_EXTRA], geo[GEO_W_OCEAN]
     on_land, open_m, under_m = geo[GEO_LAND] > 0.5, geo[GEO_OPEN] > 0.5, geo[GEO_UNDER] > 0.5
@@ -190,9 +185,8 @@ def _substeps(mom, st, forc, geo, *, n_sub, k4_nsub, sub_dt, H_m, r_bot, g, a, d
         # SST and tracers share one departure-point gather; the blend is the
         # SST's only, the tracers take the advected value
         if plain:
-            lon0 = 0 if single(mesh) else mesh.rank * st.shape[-1]
-            adv = bilinear_wrap_gather_multi(all_gather_lon(st, mesh), *departure_indices(
-                st.shape[1:], uo, vo, sub_dt, a, dlat, dlon, cos05, st.dtype, lon0))
+            adv = bilinear_wrap_gather_multi(st, *departure_indices(
+                st.shape[1:], uo, vo, sub_dt, a, dlat, dlon, cos05, st.dtype))
         else:
             adv = advect_semilag_multi(st, uo, vo, sub_dt, a, dlat, dlon, cos05, mesh)
         sst = (1.0 - adv_alpha) * st[0] + adv_alpha * adv[0]
@@ -270,38 +264,20 @@ class OceanSubsteps(torch.autograd.Function):
         return ocean_substeps_batched_cuda(*ops, info.batch_size, **params), (0, 0)
 
 
-def ocean_substeps(mom, st, forc, geo, **params):
-    """K4 on a CUDA tensor, its plain version on a CPU tensor."""
+def ocean_substeps(mom, st, forc, geo, mesh=None, **params):
+    """K4 on a CUDA tensor, its plain version on a CPU tensor. On a rank of
+    ``mesh`` the stacks are the rank's columns: gathered whole in one
+    collective, and the rank's columns of the whole grid's call returned."""
+    if not single(mesh):
+        w = st.shape[-1]
+        whole = all_gather_lon(torch.cat([mom, st, forc, geo]), mesh)
+        lon0 = mesh.rank * w
+        out = ocean_substeps(*torch.split(whole, [len(x) for x in (mom, st, forc, geo)]),
+                             **params)
+        return tuple(x[..., lon0:lon0 + w].contiguous() for x in out)
     if not use_kernel(st):
         return ocean_substeps_plain(mom, st, forc, geo, **params)
     return OceanSubsteps.apply(mom, st, forc, geo, params)
-
-
-def ocean_substeps_sharded(mom, st, forc, geo, mesh, **params):
-    """``ocean_substeps`` on a rank of ``mesh``: the rank's columns of
-    ``mom`` and ``st`` in and out, ``forc`` and ``geo`` padded by at least
-    ``halo(k4_nsub)`` columns on each side (``substep_operands``' pad). On a
-    CUDA tensor K4's sharded form, a substep at a time: the halo of ``mom``
-    exchanged, ``st`` gathered whole, the tile pass, the η sums added across
-    ranks, the finish. On a CPU tensor its plain version, ``_substeps`` with
-    the mesh on the rank's columns. Every owned cell equals the whole grid's
-    call but for the η mean's order of summation."""
-    w = st.shape[-1]
-    pad = (forc.shape[-1] - w) // 2
-    if pad < halo(params["k4_nsub"])[1] or geo.shape[-1] != forc.shape[-1]:
-        raise ValueError(f"forc and geo of {forc.shape[-1]} and {geo.shape[-1]} columns are not "
-                         f"the rank's {w} padded by at least {halo(params['k4_nsub'])[1]}")
-    if not use_kernel(st):
-        own = lambda x: x[..., pad:pad + w]
-        return _substeps(mom, st, own(forc), own(geo), **params, mesh=mesh)
-    from .kernels.ocean_substeps import ocean_substep_sharded_cuda
-    lon0 = mesh.rank * w
-    one = dict(params, n_sub=1)
-    for _ in range(params["n_sub"]):
-        mom, st = ocean_substep_sharded_cuda(
-            pad_lon(mom, pad, "wrap", mesh), all_gather_lon(st, mesh), forc, geo, pad=pad,
-            lon0=lon0, reduce_sums=lambda v: all_reduce_sum(v, mesh), **one)
-    return mom, st
 
 
 def fused_structure(cfg: OceanConfig) -> bool:
@@ -338,20 +314,11 @@ def geo_stack(grid: Grid, cfg: OceanConfig, land_mask, ice_mask, sub_dt: float, 
     return torch.stack([x.to(dtype) for x in planes])
 
 
-def sharded_pad(cfg: OceanConfig) -> int:
-    """The columns of each neighbour's that K4's sharded form reads around a
-    rank's (``kernels.ocean_substeps.halo``)."""
-    return halo(max(1, int(cfg.k4_nsub)))[1]
-
-
 def substep_operands(grid: Grid, cfg: OceanConfig, land_mask, ocn: OceanState, u_atm, v_atm,
-                     Q_net, ice_mask, dt: float, n_sub: int, tracers=None, pad: int = 0):
+                     Q_net, ice_mask, dt: float, n_sub: int, tracers=None):
     """(mom, st, forc, geo, params): the stacks and keyword parameters of
     :func:`ocean_substeps` for one outer step (``ocean.py:172-189`` of the
-    JAX package). With ``pad`` (a rank of the longitude mesh whose grid
-    holds padded maps), ``forc`` and ``geo`` also hold ``pad`` columns of
-    each neighbour's: the step's fields (the forcing, the land and ice
-    masks) in one exchange, the grid's maps from ``Grid.padded`` in none."""
+    JAX package), on ``grid``'s columns."""
     dtype = ocn.sst.dtype
 
     # wind stress from the relative wind, constant within the substeps
@@ -363,13 +330,7 @@ def substep_operands(grid: Grid, cfg: OceanConfig, land_mask, ocn: OceanState, u
     forc = torch.stack([tau_x / (cfg.rho_w * cfg.H_m), tau_y / (cfg.rho_w * cfg.H_m),
                         Q_net / (cfg.rho_w * cfg.cp_w * cfg.H_m)])
     sub_dt = dt / n_sub
-    geo_grid = grid
-    if pad:
-        fp = pad_lon(torch.cat([forc, land_mask[None].to(dtype), ice_mask[None].to(dtype)]),
-                     pad, "wrap", grid.mesh)
-        forc, land_mask, ice_mask = fp[:3], fp[3], fp[4] > 0.5
-        geo_grid = grid.padded_by(pad)
-    geo = geo_stack(geo_grid, cfg, land_mask, ice_mask, sub_dt, dtype)
+    geo = geo_stack(grid, cfg, land_mask, ice_mask, sub_dt, dtype)
     mom = torch.stack([ocn.uo, ocn.vo, ocn.eta])
     st = ocn.sst[None] if tracers is None else torch.cat([ocn.sst[None], tracers])
     params = dict(n_sub=n_sub, k4_nsub=max(1, int(cfg.k4_nsub)), sub_dt=sub_dt, H_m=cfg.H_m,
@@ -391,14 +352,10 @@ def ocean_step(grid: Grid, cfg: OceanConfig, land_mask, ocn: OceanState, u_atm, 
     if tracers is not None and n_sub != 1:
         raise ValueError("shared-gather tracers require n_sub == 1")
     mesh = grid.mesh
-    sharded = fused_structure(cfg) and not single(mesh)
     mom, st, forc, geo, params = substep_operands(grid, cfg, land_mask, ocn, u_atm, v_atm,
-                                                  Q_net, ice_mask, dt, n_sub, tracers,
-                                                  sharded_pad(cfg) if sharded else 0)
-    if sharded:
-        mom, st = ocean_substeps_sharded(mom, st, forc, geo, mesh, **params)
-    elif fused_structure(cfg):
-        mom, st = ocean_substeps(mom, st, forc, geo, **params)
+                                                  Q_net, ice_mask, dt, n_sub, tracers)
+    if fused_structure(cfg):
+        mom, st = ocean_substeps(mom, st, forc, geo, mesh=mesh, **params)
     else:
         # the reference increments its counter at the start of a step
         apply_diff = cfg.diff_every > 0 and (step_idx + 1) % max(1, cfg.diff_every) == 0

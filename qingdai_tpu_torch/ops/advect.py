@@ -14,13 +14,12 @@ backward (the VJP that K2's and K4's ``autograd.Function``s take) adds each
 cell's contributions in one order (``ops.scatter.gather_fixed``), so a
 gradient repeats to the bit on the card.
 
-On a rank of the longitude mesh (``mesh``) the stack is gathered whole and
-K2's sharded form writes the rank's columns: a departure point may lie any
-number of columns away (on the pole rows the 1e-6 cos cap moves it ~2700
-cells per m/s of wind), so no halo would do. The departure points come from
-the rank's own winds and cos map and the global column index, the same
-arithmetic per cell as the whole grid's call, so the columns are bit-equal
-to it.
+On a rank of the longitude mesh (``mesh``) the stack, the winds and the
+cos map are gathered whole in one collective, the whole grid's call runs
+on them (K2 on a card) and the rank keeps its columns: a departure point
+may lie any number of columns away (on the pole rows the 1e-6 cos cap moves
+it ~2700 cells per m/s of wind), so no halo would do. The columns are the
+whole grid's call bit for bit.
 """
 
 from __future__ import annotations
@@ -63,27 +62,25 @@ def bilinear_wrap_gather_multi(fields: torch.Tensor, dep_j: torch.Tensor,
             + corner(j1, i0) * w10 + corner(j1, i1) * w11)
 
 
-def departure_indices(shape, u, v, dt, a, dlat, dlon, coslat, dtype, lon0: int = 0):
+def departure_indices(shape, u, v, dt, a, dlat, dlon, coslat, dtype):
     """Upstream departure-point fractional indices (dep_j, dep_i) of the
-    [H, W] cells whose column i is global column ``lon0 + i``."""
+    [H, W] cells."""
     H, W = shape
     dlam = u * dt / (a * coslat)
     dphi = v * dt / a
     dx = dlam / dlon
     dy = dphi / dlat
     jj = torch.arange(H, device=u.device, dtype=torch.int32).to(dtype)[:, None]
-    ii = torch.arange(lon0, lon0 + W, device=u.device, dtype=torch.int32).to(dtype)[None, :]
+    ii = torch.arange(W, device=u.device, dtype=torch.int32).to(dtype)[None, :]
     return jj - dy, ii - dx
 
 
 def advect_semilag_multi_ref(fields: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
                              dt: float, a: float, dlat: float, dlon: float,
-                             coslat: torch.Tensor, lon0: int = 0) -> torch.Tensor:
+                             coslat: torch.Tensor) -> torch.Tensor:
     """Plain version of kernel K2 from the winds: ``departure_indices`` and
-    ``bilinear_wrap_gather_multi``. Winds narrower than the stack are a
-    rank's columns from global column ``lon0`` (K2's sharded form)."""
-    dep_j, dep_i = departure_indices(u.shape, u, v, dt, a, dlat, dlon, coslat,
-                                     fields.dtype, lon0)
+    ``bilinear_wrap_gather_multi``."""
+    dep_j, dep_i = departure_indices(u.shape, u, v, dt, a, dlat, dlon, coslat, fields.dtype)
     return bilinear_wrap_gather_multi(fields, dep_j, dep_i)
 
 
@@ -127,12 +124,11 @@ def advect_semilag_multi(fields: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
     """Advect stacked fields [M, H, W] by the same wind over dt; on a rank
     of ``mesh``, the rank's columns of the whole stack's advection."""
     if not single(mesh):
-        whole = all_gather_lon(fields, mesh)
-        lon0 = mesh.rank * fields.shape[-1]
-        if not use_kernel(fields):
-            return advect_semilag_multi_ref(whole, u, v, dt, a, dlat, dlon, coslat, lon0)
-        from ..kernels.advect_bilinear import advect_bilinear_sharded_cuda
-        return advect_bilinear_sharded_cuda(whole, u, v, dt, a, dlat, dlon, coslat, lon0)
+        M, w = fields.shape[0], fields.shape[-1]
+        whole = all_gather_lon(torch.cat([fields, torch.stack([u, v, coslat])]), mesh)
+        lon0 = mesh.rank * w
+        return advect_semilag_multi(whole[:M], whole[M], whole[M + 1], dt, a, dlat, dlon,
+                                    whole[M + 2])[..., lon0:lon0 + w].contiguous()
     if not use_kernel(fields):
         return advect_semilag_multi_ref(fields, u, v, dt, a, dlat, dlon, coslat)
     return AdvectBilinear.apply(fields, u, v, dt, a, dlat, dlon, coslat)

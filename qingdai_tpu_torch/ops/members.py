@@ -1,7 +1,13 @@
 """What the kernels' ``torch.autograd.Function``s share: the dispatch rules
 around a kernel, its gradient and its member axis under ``torch.func.vmap``.
 
-Each of K1–K4 is dispatched by device: a CPU tensor goes to the plain
+A kernel sees one rank's whole grid and nothing of the longitude mesh. On
+a rank of the mesh K1, K2 and K4 reach it through their single-rank form
+on their operands gathered whole, the rank keeping its columns of the
+result, and K3 on the padded block; K5 and K6 take their plain versions
+there.
+
+Each kernel is dispatched by device: a CPU tensor goes to the plain
 version directly (``torch.func.vmap`` batches its ops, and autograd runs
 through them), a CUDA tensor to one Function whose ``forward`` launches the
 kernel. Its ``backward`` is ``plain_vjp``: the plain version recomputed from

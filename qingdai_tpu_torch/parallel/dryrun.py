@@ -135,10 +135,7 @@ def dryrun_multichip(nproc: int, backend: str = "nccl", device="cuda", n_lat: in
     docstring). Returns rank 0's record; raises on a segment beyond its
     bound."""
     n_lon = max(2 * nproc, ((n_lon // nproc) * nproc) or nproc)
-    if resolve_device(device).type == "cuda":
-        # build the kernels once, before the ranks start
-        from ..kernels.build import load_library
-        load_library()
+    resolve_device(device)      # without the card it names, raise before any rank starts
     return spawn_ranks(dryrun_rank, nproc, backend, device, (n_lat, n_lon, n_segs),
                        threads=threads, timeout=timeout)[0]
 

@@ -129,11 +129,9 @@ def _map(obj, fn):
 
 def static_pad(cfg) -> int:
     """The columns a shard's grid holds beyond its own on each side
-    (``Grid.padded``) for a ``SimConfig``: as many as the padded stencils
-    with static operands read, K3's 2 a ∇⁴ substep and K4's halo."""
-    from ..kernels.ocean_substeps import halo
-    return max(2 * max(1, int(cfg.dynamics.k4_nsub)),
-               halo(max(1, int(cfg.ocean.k4_nsub)))[1])
+    (``Grid.padded``) for a ``SimConfig``: as many as K3's padded block
+    reads of its static operands, 2 a ∇⁴ substep of the dynamics."""
+    return 2 * max(1, int(cfg.dynamics.k4_nsub))
 
 
 def shard_grid(grid: Grid, mesh: Mesh, pad: int = 0) -> Grid:

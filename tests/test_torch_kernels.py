@@ -17,9 +17,9 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (GRAD_TOL, GRADCHECK_NONDET, GRADCHECK_SHAPE, SHAREABLE, wrap_cols,
-                        batched_equal, batched_pairs, gauss_field, grad_cases, k1_cases,
-                        k2_check, k4_operands, k5_operands)
+from chip_smoke import (GRAD_TOL, GRADCHECK_NONDET, GRADCHECK_SHAPE, SHAREABLE, batched_equal,
+                        batched_pairs, gauss_field, grad_cases, k1_cases, k2_check, k4_operands,
+                        k5_operands)
 from qingdai_tpu_torch import constants as const
 from qingdai_tpu_torch import kernels, ocean
 from qingdai_tpu_torch.ecology import phyto
@@ -390,100 +390,6 @@ def test_batched_form_refuses_grad(dev, name):
     batched[0].requires_grad_(True)
     with pytest.raises(RuntimeError, match="batched kernel has no backward"):
         torch.func.vmap(fn, randomness="error")(*batched)
-
-
-# ---- the sharded forms of K2 and K4 (a rank of the longitude mesh), each
-# rank's inputs made here in one process as the halo exchange and the
-# gather make them ----
-
-@pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("n", [2, 4])
-@pytest.mark.parametrize("case", ["winds", "poles"])
-def test_advect_sharded_form_matches_whole_grid(dev, dtype, n, case):
-    """Every rank's columns of K2's sharded form bit-equal to the whole
-    grid's K2 and to its plain version with the column offset."""
-    M = 2
-    r = np.random.default_rng(11)
-    g = make_grid(H, W, device=dev, dtype=dtype)
-    F = _on(dev, 280.0 + 20.0 * r.standard_normal((M, H, W)), dtype)
-    u = np.clip(40.0 * r.standard_normal((H, W)), -200, 200)
-    if case == "poles":
-        u[[0, -1]] = r.choice([-1.0, 1.0], (2, W)) * r.uniform(150.0, 200.0, (2, W))
-    u, v = _on(dev, u, dtype), _on(dev, np.clip(30.0 * r.standard_normal((H, W)), -200, 200),
-                                   dtype)
-    sc = (300.0, A, g.dlat_rad, g.dlon_rad)
-    whole = advect_bilinear.advect_bilinear_cuda(F, u, v, *sc, g.coslat_cap_tiny)
-    w = W // n
-    for rank in range(n):
-        lon0 = rank * w
-        us, vs, cs = (x[:, lon0:lon0 + w].contiguous() for x in (u, v, g.coslat_cap_tiny))
-        before = kernels.launch_counts()["advect_bilinear_sharded"]
-        got = advect_bilinear.advect_bilinear_sharded_cuda(F, us, vs, *sc, cs, lon0)
-        assert kernels.launch_counts()["advect_bilinear_sharded"] == before + 1
-        assert torch.equal(got, whole[..., lon0:lon0 + w])
-        assert torch.equal(got, advect.advect_semilag_multi_ref(F, us, vs, *sc, cs, lon0))
-
-
-def _k4_sharded(mom, st, forc, geo, params, n):
-    """Every rank's call of K4's sharded form, their η sums added across
-    the ranks as ``all_reduce_sum`` adds them: a first pass records each
-    rank's sums, the second finishes with their total."""
-    hc = ocean_substeps.halo(params["k4_nsub"])[1]
-    w = W // n
-    sums = []
-
-    def calls(reduce):
-        outs = []
-        for rank in range(n):
-            lon0 = rank * w
-            mp, fp, gp = (wrap_cols(x, lon0, w, hc) for x in (mom, forc, geo))
-            outs.append(ocean_substeps.ocean_substep_sharded_cuda(
-                mp, st, fp, gp, pad=hc, lon0=lon0, reduce_sums=reduce, **params))
-        return outs
-
-    calls(lambda s: sums.append(s) or s)
-    total = torch.stack(sums).sum(0)
-    outs = calls(lambda s: total)
-    return tuple(torch.cat([o[i] for o in outs], dim=-1) for i in range(2))
-
-
-@pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("n", [2, 4])
-@pytest.mark.parametrize("n_tracers,k4_nsub,K_h", [(10, 1, 5.0e3), (0, 2, 0.0)])
-def test_ocean_substep_sharded_form_matches_whole_grid(dev, dtype, n, n_tracers, k4_nsub, K_h):
-    """The ranks' columns of K4's sharded form, one substep, against the
-    whole grid's K4 and its plain version: each plane within the main-path
-    test's tolerances (the η mean's order of summation); the SST and the
-    tracers bit-equal to the whole grid's K4."""
-    mom, st, forc, geo, params = k4_operands(dev, dtype, n_tracers, 1, k4_nsub, K_h)
-    before = kernels.launch_counts()["ocean_substeps_sharded"]
-    got = _k4_sharded(mom, st, forc, geo, params, n)
-    # two passes over the n ranks, each call the tile pass and the finish
-    assert kernels.launch_counts()["ocean_substeps_sharded"] == before + 2 * n * 2
-    whole = ocean.ocean_substeps(mom, st, forc, geo, **params)
-    k4_check(got, whole, dtype)
-    k4_check(got, ocean.ocean_substeps_plain(mom, st, forc, geo, **params), dtype)
-    assert torch.equal(got[1], whole[1])
-    assert torch.equal(got[0][:2], whole[0][:2])
-
-
-def test_sharded_wrappers_refuse_bad_input(dev):
-    mom, st, forc, geo, params = k4_operands(dev, torch.float32, 0, 1, 1, 0.0)
-    hc = ocean_substeps.halo(1)[1]
-    mp, fp, gp = (wrap_cols(x, 0, W // 2, hc - 1) for x in (mom, forc, geo))
-    with pytest.raises(ValueError):   # a halo narrower than the kernel reads
-        ocean_substeps.ocean_substep_sharded_cuda(mp, st, fp, gp, pad=hc - 1, lon0=0,
-                                                  reduce_sums=lambda s: s, **params)
-    with pytest.raises(ValueError):   # one substep a call
-        ocean_substeps.ocean_substep_sharded_cuda(mp, st, fp, gp, pad=hc - 1, lon0=0,
-                                                  reduce_sums=lambda s: s,
-                                                  **dict(params, n_sub=2))
-    g = make_grid(H, W, device=dev, dtype=torch.float32)
-    F = torch.zeros((2, H, W), device=dev)
-    u = torch.zeros((H, W // 2), device=dev)
-    with pytest.raises(ValueError):   # columns beyond the stack
-        advect_bilinear.advect_bilinear_sharded_cuda(F, u, u, 300.0, A, g.dlat_rad, g.dlon_rad,
-                                                     u, W // 2 + 1)
 
 
 # ---- K5, the chlorophyll transport (replaces no TPU kernel) ----

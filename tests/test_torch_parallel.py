@@ -2,11 +2,12 @@
 for the module (``tests/torch_parallel_ranks.py``), float64, 19×36 with 18
 columns a rank.
 
-- Each halo op and each sharded plain form (K1 on the gathered field, K2
-  with its column offset, K3 on the padded block, K4 split at the η mean)
-  against the unsharded plain version: bit-equal, the reflect and one-sided
-  seams included; K4's η (and the ocean step's fields after its polar ring
-  means) within 1e-15 of each plane's max, their sums' order.
+- Each halo op and each kernel's plain version on a rank (K1, K2 and K4
+  on their operands gathered whole, K3 on the padded block) against the
+  unsharded plain version: bit-equal, the reflect and one-sided seams
+  included; K4's results and the ocean step's fields after its polar ring
+  means within 1e-15 of each plane's max, the ring means' order of
+  summation.
 - The same ops against the JAX package's mesh forms on a 2-device
   ``qingdai_tpu.parallel.mesh.make_mesh(2)`` from the same numpy inputs,
   within 1e-12.
@@ -111,9 +112,8 @@ def test_sharded_op_bit_equal_to_unsharded(run, op):
 
 
 def test_padded_static_operands_equal_the_exchanged(run):
-    """The static operands a rank cuts from its shard grid's padded maps
-    (K3's cos map, K4's ``forc`` and ``geo`` with one and two substeps)
-    equal the same operands padded by a halo exchange, on every rank."""
+    """The static maps a rank's shard grid holds padded (K3's ∇⁴ map and cos
+    map) equal the same maps padded by a halo exchange, on every rank."""
     _, res, _ = run
     assert float(res["ops"]["float64"]["padded_operands"]) == 0.0
 
